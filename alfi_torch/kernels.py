@@ -1,26 +1,28 @@
-"""Hand-written CUDA kernels of the almg cycle, their plain PyTorch
-versions, and the launch counts that show a run went through them.
+"""The hand-written CUDA kernel of the almg cycle, its plain PyTorch
+version, and the launch counts that show a run went through it.
 
-One operation carries both hot applies of the multigrid cycle: the
-batched gather-GEMV-scatter ``y = sum_b S_b^T A_b S_b x`` with dense f64
-blocks A_b (m x m) and a 0/1 gather S_b given by an index table.
+One operation carries both hot applies of the multigrid cycle, with the
+boundary masks folded in:
+
+    out = out_mask * sum_b S_b^T A_b S_b (in_mask * x)
+          + (1 - out_mask) * passthrough
+
+with dense f64 blocks A_b (m x m), a 0/1 gather S_b given by an index
+table, and 0/1 masks fixed per table (no out_mask: out is the sum).
 
 * K1, the patch apply (smoother and Schoeberl patch solves): A_b are the
   explicit patch inverses, the table is ``PatchSet.dofs``.
 * K2, the level matvec: A_b are the per-cell element tensors, the table
   is ``MGLevel.rows``.
 
-It runs as two kernels (``csrc/block_gemv.cu``, whose header note says
-what bounds them on the card and what the design does about it):
-:func:`gather_bgemv` and :func:`csr_segment_sum`, a deterministic
-segment sum over a CSR list built once on the host (no atomics).
-:class:`GatherGemvScatter` binds one table to the pair.
-
-The kernels are built with nvcc for ``sm_90a`` at first use, into the
-git-ignored ``_build/`` directory under a name keyed by the source's
-hash, and bound through ``ctypes`` (a plain C interface).  A wrapper
-takes its plain version only for tensors on the CPU; a CUDA tensor gets
-the kernel or an exception.
+:class:`GatherGemvScatter` binds one table and its masks to the fused
+kernel ``csrc/gather_gemv_scatter.cu`` (one launch per apply; its header
+note says what bounds it on the card, what the design does about it and
+in which order it sums).  The kernel is built with nvcc for ``sm_90a`` at
+first use, into the git-ignored ``_build/`` directory under a name keyed
+by the source's hash, and bound through ``ctypes`` (a plain C interface).
+A table on the CPU runs the plain version; a table on a CUDA device
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,12 +37,10 @@ import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "block_gemv.cu")
+SOURCE = os.path.join(_HERE, "csrc", "gather_gemv_scatter.cu")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-#: largest block size the gather_bgemv kernel takes
-MAX_M = 64
 
 _lib = None
 #: compiler output of the build that produced the loaded library
@@ -89,138 +89,13 @@ def load_library():
                                                            build_log))
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.alfi_gather_bgemv.restype = ctypes.c_int
-    lib.alfi_gather_bgemv.argtypes = [vp, vp, vp, vp, ll, ctypes.c_int, ll,
-                                      vp]
-    lib.alfi_csr_segment_sum.restype = ctypes.c_int
-    lib.alfi_csr_segment_sum.argtypes = [vp, vp, vp, vp, ll, vp]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.alfi_gather_gemv_scatter.restype = ci
+    lib.alfi_gather_gemv_scatter.argtypes = [vp] * 8 + [ci] * 3 + [vp]
     _lib = lib
     return lib
 
 
-def _on_cpu(*tensors):
-    """True when every tensor lies on the CPU; raises for a mix, and for
-    any device other than the CPU and CUDA."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError("kernel inputs must all lie on the CPU or all on one "
-                     "CUDA device, got %s" % sorted(str(t.device)
-                                                    for t in tensors))
-
-
-def _check(t, name, dtype, ndim):
-    if t.dtype != dtype:
-        raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
-    if t.dim() != ndim:
-        raise ValueError("%s must have %d dims, got shape %s"
-                         % (name, ndim, tuple(t.shape)))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % name)
-
-
-def _raise_on(err, fn):
-    if err != 0:
-        raise RuntimeError("%s: CUDA error %d after launch" % (fn, err))
-
-
-# ----------------------------------------------------------------------
-# gather_bgemv
-# ----------------------------------------------------------------------
-def plain_gather_bgemv(A, x, idx):
-    """Plain PyTorch version of :func:`gather_bgemv`."""
-    n = x.shape[0]
-    idx = idx.long()
-    safe = torch.where((idx >= 0) & (idx < n), idx, n)
-    xpad = torch.cat([x, x.new_zeros(1)])
-    return torch.einsum("bij,bj->bi", A, xpad[safe])
-
-
-def gather_bgemv(A, x, idx, use):
-    """Y (nb, m) with Y[b, i] = sum_j A[b, i, j] * x[idx[b, j]]; an idx
-    entry outside [0, len(x)) reads 0.
-
-    A (nb, m, m) f64, x (n,) f64, idx (nb, m) int32, all contiguous;
-    m <= 64.  ``use`` ("K1" or "K2") names the launch count to raise."""
-    if _on_cpu(A, x, idx):
-        return plain_gather_bgemv(A, x, idx)
-    _check(A, "A", torch.float64, 3)
-    _check(x, "x", torch.float64, 1)
-    _check(idx, "idx", torch.int32, 2)
-    nb, m, m2 = A.shape
-    if m != m2 or tuple(idx.shape) != (nb, m):
-        raise ValueError("gather_bgemv: A %s and idx %s do not match"
-                         % (tuple(A.shape), tuple(idx.shape)))
-    if not 1 <= m <= MAX_M:
-        raise ValueError("gather_bgemv takes 1 <= m <= %d, got m=%d"
-                         % (MAX_M, m))
-    lib = load_library()
-    Y = torch.empty((nb, m), dtype=torch.float64, device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.alfi_gather_bgemv(A.data_ptr(), x.data_ptr(),
-                                    idx.data_ptr(), Y.data_ptr(), nb, m,
-                                    x.shape[0], stream)
-        gather_bgemv.launches[use] += 1
-    _raise_on(err, "gather_bgemv")
-    return Y
-
-
-gather_bgemv.launches = {"K1": 0, "K2": 0}
-
-
-# ----------------------------------------------------------------------
-# csr_segment_sum
-# ----------------------------------------------------------------------
-def plain_csr_segment_sum(vals, offsets, slots):
-    """Plain PyTorch version of :func:`csr_segment_sum`."""
-    n = offsets.shape[0] - 1
-    counts = (offsets[1:] - offsets[:-1]).long()
-    seg = torch.repeat_interleave(
-        torch.arange(n, device=vals.device), counts)
-    out = torch.zeros((n,), dtype=vals.dtype, device=vals.device)
-    return out.index_add(0, seg, vals.reshape(-1)[slots.long()])
-
-
-def csr_segment_sum(vals, offsets, slots, use):
-    """out (n,) with out[k] = sum of vals.flat[slots[t]] for t in
-    [offsets[k], offsets[k+1]), added in that order.
-
-    vals f64 contiguous (any shape), offsets (n+1,) and slots int32."""
-    if _on_cpu(vals, offsets, slots):
-        return plain_csr_segment_sum(vals, offsets, slots)
-    if vals.dtype != torch.float64 or not vals.is_contiguous():
-        raise TypeError("csr_segment_sum: vals must be contiguous f64")
-    _check(offsets, "offsets", torch.int32, 1)
-    _check(slots, "slots", torch.int32, 1)
-    n = offsets.shape[0] - 1
-    lib = load_library()
-    out = torch.empty((n,), dtype=torch.float64, device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.alfi_csr_segment_sum(vals.data_ptr(), offsets.data_ptr(),
-                                       slots.data_ptr(), out.data_ptr(), n,
-                                       stream)
-        csr_segment_sum.launches[use] += 1
-    _raise_on(err, "csr_segment_sum")
-    return out
-
-
-csr_segment_sum.launches = {"K1": 0, "K2": 0}
-
-
-def reset_launch_counts():
-    for fn in (gather_bgemv, csr_segment_sum):
-        for key in fn.launches:
-            fn.launches[key] = 0
-
-
-# ----------------------------------------------------------------------
-# the shared operation
-# ----------------------------------------------------------------------
 def csr_from_table(idx, n):
     """(offsets (n+1,), slots) int32 host arrays: for each k in [0, n),
     the flat positions t of ``idx`` with idx.flat[t] == k, ascending;
@@ -234,26 +109,131 @@ def csr_from_table(idx, n):
     return offsets.astype(np.int32), slots.astype(np.int32)
 
 
+def _mask_keep(mask, n, name):
+    """Host bool (n,) from a 0/1 mask of n values (any shape); raises on
+    any other value."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    mask = np.asarray(mask, dtype=np.float64).reshape(-1)
+    if mask.shape != (n,):
+        raise ValueError("%s has %d values, the table's vector %d"
+                         % (name, mask.size, n))
+    if not np.all((mask == 0.0) | (mask == 1.0)):
+        raise ValueError("%s must hold only 0 and 1" % name)
+    return mask == 1.0
+
+
 class GatherGemvScatter:
-    """y = sum_b S_b^T A_b S_b x for one fixed index table.
+    """out = out_mask * sum_b S_b^T A_b S_b (in_mask * x)
+    + (1 - out_mask) * passthrough, for one fixed index table.
 
     idx (nb, m) host table of positions in x (pads outside [0, n));
-    ``use`` tags the launches ("K1" patch apply, "K2" level matvec)."""
+    ``use`` tags the launches ("K1" patch apply, "K2" level matvec);
+    ``in_mask`` / ``out_mask``: optional 0/1 masks of n values, fixed
+    here.  With an out_mask every call passes ``passthrough`` (n,).
+    The device is the table's: A, x and passthrough must lie on it.  On
+    a CUDA device the kernel takes an even m <= 64 and a 16-byte-aligned
+    A (any fresh allocation)."""
 
-    def __init__(self, idx, n, use, *, device):
+    #: kernel launches per use since the last reset_launch_counts()
+    launches = {"K1": 0, "K2": 0}
+
+    def __init__(self, idx, n, use, *, in_mask=None, out_mask=None,
+                 device):
+        if use not in self.launches:
+            raise ValueError("use must be one of %s" % sorted(self.launches))
         idx = np.asarray(idx, dtype=np.int64)
-        self.n = int(n)
-        self.use = use
-        self.idx = torch.as_tensor(idx.astype(np.int32), device=device)
-        offsets, slots = csr_from_table(idx, self.n)
-        self.offsets = torch.as_tensor(offsets, device=device)
-        self.slots = torch.as_tensor(slots, device=device)
+        nb, m = idx.shape
+        n = int(n)
+        if n >= 2 ** 31:
+            raise ValueError("vector too long for int32 tables")
+        self.n, self.m, self.use = n, m, use
+        self.ashape = (nb, m, m)
+        idx = np.where((idx >= 0) & (idx < n), idx, -1)
+        in_keep = None if in_mask is None else _mask_keep(in_mask, n,
+                                                          "in_mask")
+        out_keep = None if out_mask is None else _mask_keep(out_mask, n,
+                                                            "out_mask")
+        gidx = idx if in_keep is None else np.where(
+            (idx >= 0) & in_keep[idx], idx, -1)
+        owned = idx if out_keep is None else np.where(
+            (idx >= 0) & out_keep[idx], idx, -1)
+        offsets, slots = csr_from_table(owned, n)
 
-    def __call__(self, A, x):
-        Y = gather_bgemv(A, x, self.idx, self.use)
-        return csr_segment_sum(Y, self.offsets, self.slots, self.use)
+        def dev(a):
+            return torch.as_tensor(a, device=device)
 
-    def plain(self, A, x):
-        """The same operation through the plain PyTorch versions."""
-        Y = plain_gather_bgemv(A, x, self.idx)
-        return plain_csr_segment_sum(Y, self.offsets, self.slots)
+        #: the table as given, pads pointing at n (the plain version's)
+        self.pidx = dev(np.where(idx >= 0, idx, n))
+        self.device = self.pidx.device
+        #: the kernel's gather table: in-masked entries are pads too
+        self.gidx = dev(gidx.astype(np.int32))
+        self.offsets, self.slots = dev(offsets), dev(slots)
+        #: the masks as one 0/1 byte (bool) per dof
+        self.in_keep = None if in_keep is None else dev(in_keep)
+        self.out_keep = None if out_keep is None else dev(out_keep)
+        self._launch = None
+        if self.device.type == "cuda":
+            if m % 2 or not 2 <= m <= 64:
+                raise ValueError("the CUDA kernel takes an even m in "
+                                 "[2, 64], got m=%d" % m)
+            self._launch = load_library().alfi_gather_gemv_scatter
+            self._tables = (self.gidx.data_ptr(), self.offsets.data_ptr(),
+                            self.slots.data_ptr(),
+                            None if self.out_keep is None
+                            else self.out_keep.data_ptr())
+
+    def _check(self, t, name, shape):
+        if t.device != self.device:
+            raise ValueError("%s lies on %s, the table on %s"
+                             % (name, t.device, self.device))
+        if t.dtype != torch.float64 or t.shape != shape:
+            raise ValueError("%s must be f64 of shape %s, got %s %s"
+                             % (name, shape, t.dtype, tuple(t.shape)))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+
+    def __call__(self, A, x, passthrough=None):
+        if (passthrough is None) != (self.out_keep is None):
+            raise ValueError("passthrough is required exactly when the "
+                             "table has an out_mask")
+        self._check(A, "A", self.ashape)
+        self._check(x, "x", (self.n,))
+        if passthrough is not None:
+            self._check(passthrough, "passthrough", (self.n,))
+        if self._launch is None:
+            return self.plain(A, x, passthrough)
+        a_ptr = A.data_ptr()
+        if a_ptr % 16:
+            raise ValueError("A must be 16-byte aligned")
+        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
+        gidx, offsets, slots, out_mask = self._tables
+        err = self._launch(
+            a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
+            None if passthrough is None else passthrough.data_ptr(),
+            out.data_ptr(), self.n, self.m, self.device.index,
+            torch._C._cuda_getCurrentRawStream(self.device.index))
+        if err != 0:
+            raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
+                               "launch" % err)
+        GatherGemvScatter.launches[self.use] += 1
+        return out
+
+    def plain(self, A, x, passthrough=None):
+        """The same operation in plain PyTorch (torch.where masks, an
+        einsum and index_add), on any device."""
+        n = self.n
+        if self.in_keep is not None:
+            x = torch.where(self.in_keep, x, 0.0)
+        xin = torch.cat([x, x.new_zeros(1)])[self.pidx]
+        Y = torch.einsum("bij,bj->bi", A, xin)
+        acc = x.new_zeros(n + 1).index_add_(0, self.pidx.reshape(-1),
+                                            Y.reshape(-1))[:n]
+        if self.out_keep is None:
+            return acc
+        return torch.where(self.out_keep, acc, passthrough)
+
+
+def reset_launch_counts():
+    for key in GatherGemvScatter.launches:
+        GatherGemvScatter.launches[key] = 0

@@ -35,7 +35,7 @@ def _sorted_rows(a):
 
 def _row_unique_inverse(rows):
     """Unique rows + inverse map (rows must be sorted per-row); uses the
-    native C++ dedup when available (alfi_tpu/native/topology.cpp)."""
+    native C++ dedup when available (native/topology.cpp)."""
     from ..native import sorted_row_dedup
 
     uniq, inverse = sorted_row_dedup(rows)

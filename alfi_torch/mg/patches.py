@@ -328,14 +328,16 @@ def make_patch_factor_parts(patchset):
     return factor_parts
 
 
-def build_patch_solver(patchset, *, device):
+def build_patch_solver(patchset, *, in_mask=None, out_mask=None, device):
     """Device operators over a PatchSet:
 
     factor(tensors (nc, nld, nld)) -> (np, m, m) explicit patch inverses
-    apply(inv, r_flat (ndft,))     -> additive-Schwarz application,
+    apply(inv, r_flat (ndft,)[, passthrough])
+                                   -> additive-Schwarz application,
                                       sum_p R_p^T inv_p R_p r (kernel K1;
                                       a GatherGemvScatter on the patch
-                                      dof table)
+                                      dof table with the given 0/1
+                                      masks, see alfi_torch/kernels.py)
     """
 
     def factor(tensors):
@@ -343,4 +345,5 @@ def build_patch_solver(patchset, *, device):
                                                       tensors)).contiguous()
 
     return factor, GatherGemvScatter(patchset.dofs, patchset.nflat, "K1",
+                                     in_mask=in_mask, out_mask=out_mask,
                                      device=device)

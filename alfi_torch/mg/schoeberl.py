@@ -73,7 +73,8 @@ class SchoeberlTransfer:
         _, groups = self._patch_cell_groups(hierarchy, l)
         ps = cell_patches(V, zmask.reshape(-1), groups)
         self.patchset = ps
-        self.factor, self.papply = build_patch_solver(ps, device=mg.device)
+        self.factor, self.papply = build_patch_solver(
+            ps, in_mask=self.zmask, device=mg.device)
 
     @staticmethod
     def _patch_cell_groups(hierarchy, l):
@@ -123,16 +124,17 @@ class SchoeberlTransfer:
         return lev.sum_cells(rloc).reshape(lev.V.ndof, self.mg.d)
 
     def _patch_solve(self, lufac, r):
+        """M (zmask * r), the zmask folded into kernel K1."""
         x = self.papply(lufac, r.reshape(-1))
         return x.reshape(-1, self.mg.d)
 
     def prolong(self, state, uc):
         rhs = self.standard.apply(uc)
-        b = self.zmask * self._apply_gd(state["gamma"], rhs)
-        tildeu = self._patch_solve(state["lufac"], b)
+        tildeu = self._patch_solve(state["lufac"],
+                                   self._apply_gd(state["gamma"], rhs))
         return rhs - tildeu
 
     def restrict(self, state, rf):
-        t = self._patch_solve(state["lufac"], self.zmask * rf)
+        t = self._patch_solve(state["lufac"], rf)
         b = self._apply_gd(state["gamma"], t)
         return self.standard.apply_transpose(rf - b)

@@ -51,9 +51,10 @@ class MGLevel:
         self.mask_flat = mask_u.reshape(-1)
         #: (nc, nloc*d) flattened dof rows
         self.rows = torch.as_tensor(rows, dtype=torch.int64, device=device)
-        #: the level matvec's gather-GEMV-scatter (kernel K2)
-        self.matvec = GatherGemvScatter(rows, V.ndof * V.value_size, "K2",
-                                        device=device)
+        #: the level matvec, BC masks folded in (kernel K2)
+        self.matvec = GatherGemvScatter(
+            rows, V.ndof * V.value_size, "K2", in_mask=self.mask_flat,
+            out_mask=self.mask_flat, device=device)
 
     def gather_cells(self, v0):
         """(nc, nld) cell-local values from the flat vector ``v0``."""
@@ -119,8 +120,9 @@ class VelocityMG:
             lev = self.levels[l]
             ps = star_patches(lev.V, lev.mask_flat.cpu().numpy())
             self.patchsets.append(ps)
-            self.patch_solvers.append(build_patch_solver(ps,
-                                                         device=self.device))
+            self.patch_solvers.append(build_patch_solver(
+                ps, in_mask=lev.mask_flat, out_mask=lev.mask_flat,
+                device=self.device))
             self.factor_parts.append(make_patch_factor_parts(ps))
         self.schoeberl = [
             SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)
@@ -131,13 +133,11 @@ class VelocityMG:
     # ------------------------------------------------------------------
     def level_apply(self, l, tensors, v):
         """A_l v on (ndof, d) tensors with eliminated BCs:
-        mask * sum_c R_c^T T_c R_c (mask * v) + (1 - mask) * v, the sum
-        by kernel K2."""
+        mask * sum_c R_c^T T_c R_c (mask * v) + (1 - mask) * v, in one
+        call of kernel K2."""
         lev = self.levels[l]
-        mask = lev.mask_u
-        v0 = (mask * v).reshape(-1)
-        r = lev.matvec(tensors, v0).reshape(lev.V.ndof, self.d)
-        return mask * r + (1.0 - mask) * v
+        v0 = v.reshape(-1)
+        return lev.matvec(tensors, v0, v0).reshape(lev.V.ndof, self.d)
 
     # ------------------------------------------------------------------
     def transfer_setup(self, params, statics):
@@ -192,15 +192,14 @@ class VelocityMG:
         }
 
     def _smoother_pc(self, l, state):
-        lev = self.levels[l]
+        """mask * M (mask * r) + (1 - mask) * r, M the additive patch
+        inverse, in one call of kernel K1."""
         inv = state["patch_lufacs"][l - 1]
         _, papply = self.patch_solvers[l - 1]
 
         def pc(r):
-            mask = lev.mask_u
-            x = papply(inv, (mask * r).reshape(-1))
-            x = x.reshape(-1, self.d) * mask
-            return x + (1.0 - mask) * r
+            r0 = r.reshape(-1)
+            return papply(inv, r0, r0).reshape(-1, self.d)
 
         return pc
 

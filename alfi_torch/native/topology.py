@@ -1,7 +1,8 @@
 """ctypes loader + numpy fallbacks for the native topology kernels.
 
-The C++ source is the JAX package's ``alfi_tpu/native/topology.cpp``,
-read by path (importing ``alfi_tpu`` would load jax).  It is compiled on
+The C++ source ``topology.cpp`` beside this file is a byte-for-byte copy
+of the JAX package's (``tests/test_torch_host.py`` holds the two equal);
+the port reads only its own copy.  It is compiled on
 first use (g++ -shared -fPIC -O2) into the port's git-ignored build
 directory, under a filename keyed by the SHA-256 of the source, so a
 stale binary is never preferred over the checked-in source;
@@ -18,8 +19,7 @@ import subprocess
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.normpath(os.path.join(
-    _HERE, "..", "..", "alfi_tpu", "native", "topology.cpp"))
+_SRC = os.path.join(_HERE, "topology.cpp")
 _BUILD = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 _lib = None
 _tried = False

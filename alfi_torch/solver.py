@@ -8,8 +8,9 @@ This slice ports the flagship mode:
   (alfi/solver.py:353-379),
 
 on ``ConstantPressureSolver`` ([Pk]^d - P0), a uniform hierarchy, star
-patches and no stabilisation.  Every tensor lives on the ``device`` the
-caller passes; nothing falls back to another device.
+patches and no stabilisation.  Every tensor lives on ``device``: the
+card (``"cuda"``) unless the caller asks for another; nothing falls back
+to another device.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class NavierStokesSolver:
 
     def __init__(self, problem, nref=1, solver_type="almg", gamma=10000,
                  k=5, hierarchy="bary", restriction=False, smoothing=None,
-                 high_accuracy=False, verbose=True, *, device):
+                 high_accuracy=False, verbose=True, *, device="cuda"):
         if solver_type != "almg":
             raise NotImplementedError(
                 "solver_type %r is not ported yet (only almg)" % solver_type)

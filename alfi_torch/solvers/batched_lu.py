@@ -4,8 +4,8 @@
   reference's own PkP0 trick (``patch_pc_patch_dense_inverse``,
   alfi/solver.py:599-602) and the JAX package's TPU default
   (``_ExplicitInverseFactorization``).  Every smoother or transfer
-  application is then one batched GEMV: the hand-written
-  ``gather_bgemv`` + ``csr_segment_sum`` kernels (alfi_torch/kernels.py).
+  application is then one batched GEMV: the hand-written fused
+  gather-GEMV-scatter kernel (alfi_torch/kernels.py).
 * coarse grid: one LU with partial pivoting, solved per application.
 
 Both factorisations are library calls (``torch.linalg``), as the JAX

@@ -6,20 +6,25 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``alfi_torch/csrc`` and print the seconds;
-3. hold each kernel against its plain PyTorch version on the card, on the
-   index tables of the bench config's main path with random f64 inputs
-   from ``numpy.random.default_rng(0)``: max relative error <= 1e-13;
-   print median CUDA-event times of kernel and plain version;
+2. build the CUDA kernel from ``alfi_torch/csrc`` and print the seconds;
+3. hold the fused gather-GEMV-scatter kernel against its plain PyTorch
+   version on the card at every main-path shape (the bench config's K1
+   smoother, K1 Schoeberl and K2 tables of levels 2 and 1, and the nref=3
+   fine level's K1 and K2 tables), each with the main path's masks and
+   without, on random f64 inputs from ``numpy.random.default_rng(0)``:
+   max relative error <= 1e-13 and two launches bitwise equal; print the
+   eager and device times of kernel, plain version and one cuSPARSE CSR
+   SpMV of the same operator (``library``), the kernel's device time with
+   L2 cold, and its bound;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100;
 5. the bench config (ldc2d [P2]^2-P0 almg, baseN=16, nref=2, 41,474
    dofs, the configuration of ``bench.py``): warm up with Re=1, reset the
-   state, time Re 1 -> 10 -> 100; every Re must converge with 7 Newton
-   steps and 22 +- 2 Krylov iterations in all, and the main path must
-   have launched both kernels in both of their uses; then one Newton
-   linear step is traced with torch.profiler (device busy share, kernel
+   state, time Re 1 -> 10 -> 100; every Re must converge, with 22 Krylov
+   iterations and 7 Newton steps in all, and the main path must have
+   launched the kernel for K1 and for K2; then one Newton linear step is
+   traced with torch.profiler (kernel count, device busy share, kernel
    time by name);
 6. the same problem at nref=3 (164,866 dofs) for Re 1 -> 10 must
    converge;
@@ -35,13 +40,21 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 BENCH_RES = [1, 10, 100]
 SMALL_COUNTS = [(8, 2), (7, 2), (15, 3)]  # JAX package, CPU f64
+BENCH_COUNTS = (22, 7)  # JAX package's record at the bench config
 REL_TOL = 1e-13
+#: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+#: f64 FLOP/s outside the tensor cores, which the kernel uses
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOP_PER_S = 34e12
+#: bytes written between launches to evict the 50 MB L2
+FLUSH_BYTES = 128 << 20
+KERNEL_NAME = "gather_gemv_scatter_kernel"
 PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
-               "(deleted in aaee1ce; git show "
-               "aaee1ce^:alfi_tpu/solvers/patch_pallas.py)")
+               "(pallas_call at :81; deleted in aaee1ce)")
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 (plain-XLA batch-major "
                    "level_apply; no Pallas kernel)")
 
@@ -74,9 +87,11 @@ def _device_kernels(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _device_ms(fn, reps=20):
-    """Device time per call (ms) summed over every kernel ``fn`` runs,
-    from a torch.profiler trace; None when the trace shows no kernel."""
+def _device_ms(fn, reps=20, only=None, before=None):
+    """Device time per call (ms) from a torch.profiler trace: summed over
+    every kernel ``fn`` runs, or over the kernels whose name holds
+    ``only``; ``before()`` runs ahead of each call (untimed when ``only``
+    leaves it out).  None when the trace shows no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,35 +99,120 @@ def _device_ms(fn, reps=20):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
-    total = sum(us for _, us in _device_kernels(prof))
+    total = sum(us for name, us in _device_kernels(prof)
+                if only is None or only in name)
     return total / reps / 1e3 if total > 0 else None
-
-
-def _compare(name, kernel, plain):
-    """Kernel vs plain version on the same inputs: max abs/rel error and
-    the times of both, taken in turns (plain, kernel, kernel, plain)."""
-    import torch
-
-    yk, yp = kernel(), plain()
-    torch.cuda.synchronize()
-    abs_err = float((yk - yp).abs().max())
-    rel_err = abs_err / max(float(yp.abs().max()), 1e-300)
-    if not rel_err <= REL_TOL:
-        raise AssertionError("%s: kernel vs plain max rel err %.3e > %.0e"
-                             % (name, rel_err, REL_TOL))
-    ms_p1 = _median_ms(plain)
-    ms_k1 = _median_ms(kernel)
-    ms_k2 = _median_ms(kernel)
-    ms_p2 = _median_ms(plain)
-    return {"abs_err": abs_err, "rel_err": rel_err,
-            "ms": min(ms_k1, ms_k2), "plain_ms": min(ms_p1, ms_p2),
-            "dev_ms": _device_ms(kernel), "plain_dev_ms": _device_ms(plain)}
 
 
 def _fmt(ms):
     return "not measured" if ms is None else "%.4f" % ms
+
+
+def _library_operator(op, A):
+    """The operator sum_b S_b^T A_b S_b of ``op``'s table as one CSR
+    matrix (pads dropped, no masks), assembled once for cuSPARSE."""
+    import torch
+
+    nb, m, _ = op.ashape
+    rows = op.pidx[:, :, None].expand(nb, m, m).reshape(-1)
+    cols = op.pidx[:, None, :].expand(nb, m, m).reshape(-1)
+    keep = (rows < op.n) & (cols < op.n)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), A.reshape(-1)[keep],
+        (op.n, op.n)).coalesce()
+    crow = torch._convert_indices_from_coo_to_csr(coo.indices()[0], op.n)
+    return torch.sparse_csr_tensor(crow, coo.indices()[1], coo.values(),
+                                   (op.n, op.n))
+
+
+def _bound(op):
+    """(ms, "bytes" or "operations"): the least time of one call, from the
+    bytes it must move (A rows it needs, the index table, x, the masks as
+    bytes, passthrough, out; each once) and its f64 multiply-adds."""
+    nb, m, _ = op.ashape
+    rows = int(op.slots.numel())  # A rows owned by a live output dof
+    nbytes = rows * m * 8 + nb * m * 4 + 2 * op.n * 8
+    nbytes += (op.in_keep is not None) * op.n
+    nbytes += (op.out_keep is not None) * op.n * 9  # mask and passthrough
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * rows * m / F64_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_kernel(name, op, rng, flush):
+    """The fused kernel against its plain version on ``op``'s table, with
+    its masks and without; returns one result dict per variant."""
+    import torch
+
+    from alfi_torch.kernels import GatherGemvScatter
+
+    dev = op.device
+    nb, m, _ = op.ashape
+    A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
+    x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+    p = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+    bare = GatherGemvScatter(op.pidx.cpu().numpy(), op.n, op.use,
+                             device=dev)
+    lib = _library_operator(bare, A)
+
+    def library():
+        return lib @ x
+
+    y_lib = library()
+    y_bare = bare(A, x)
+    torch.cuda.synchronize()
+    lib_err = float((y_lib - y_bare).abs().max() / y_bare.abs().max())
+    if not lib_err <= 1e-12:
+        raise AssertionError("%s: library operator disagrees (%.3e)"
+                             % (name, lib_err))
+    lib_ms = _median_ms(library)
+    lib_dev = _device_ms(library)
+    out = []
+    for masked, o in ((False, bare), (True, op)):
+        args = (p,) if o.out_keep is not None else ()
+
+        def kernel():
+            return o(A, x, *args)
+
+        def plain():
+            return o.plain(A, x, *args)
+
+        yk, yk2, yp = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(yk, yk2):
+            raise AssertionError("%s: two launches differ" % name)
+        abs_err = float((yk - yp).abs().max())
+        rel_err = abs_err / max(float(yp.abs().max()), 1e-300)
+        if not rel_err <= REL_TOL:
+            raise AssertionError("%s: kernel vs plain max rel err %.3e > "
+                                 "%.0e" % (name, rel_err, REL_TOL))
+        ms_p1, ms_k1 = _median_ms(plain), _median_ms(kernel)
+        ms_k2, ms_p2 = _median_ms(kernel), _median_ms(plain)
+        bound_ms, bound_by = _bound(o)
+        dev_ms = _device_ms(kernel, only=KERNEL_NAME)
+        r = {"name": name, "shape": (nb, m), "masked": masked,
+             "abs_err": abs_err, "rel_err": rel_err,
+             "ms": min(ms_k1, ms_k2), "dev_ms": dev_ms,
+             "cold_ms": _device_ms(kernel, only=KERNEL_NAME, before=flush),
+             "plain_ms": min(ms_p1, ms_p2), "plain_dev_ms": _device_ms(plain),
+             "library_ms": lib_ms, "library_dev_ms": lib_dev,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "share": (bound_ms / dev_ms) if dev_ms else None}
+        print("%-17s %6d x %-2d %-6s %8.2e  %s (%s, cold %s) | %6.2f us "
+              "%-5s %5s | %s (%s) | %s (%s)" % (
+                  name, nb, m, "masked" if masked else "bare", rel_err,
+                  _fmt(r["ms"]), _fmt(dev_ms), _fmt(r["cold_ms"]),
+                  1e3 * bound_ms, bound_by,
+                  "-" if r["share"] is None else "%.0f%%" % (100 * r["share"]),
+                  _fmt(r["plain_ms"]), _fmt(r["plain_dev_ms"]),
+                  _fmt(lib_ms), _fmt(lib_dev)), flush=True)
+        out.append(r)
+    return out
 
 
 def _solve_sweep(solver, res):
@@ -148,6 +248,7 @@ def main():
     from alfi_torch import ConstantPressureSolver, kernels
     from alfi_torch.problems import TwoDimLidDrivenCavityProblem
 
+    warnings.filterwarnings("ignore", message="Sparse")
     dev = torch.device("cuda")
 
     # 1. the card
@@ -167,53 +268,41 @@ def main():
         if "ptxas info" in line:
             print("  " + line.strip())
 
-    # 3. kernels vs plain versions on the main path's tables
+    # 3. the fused kernel vs its plain version on the main path's tables;
+    # the solvers run on the card by default
     def make(baseN, nref):
         return ConstantPressureSolver(
             TwoDimLidDrivenCavityProblem(baseN), nref=nref, k=2,
             solver_type="almg", hierarchy="uniform", gamma=1e4,
-            verbose=False, device=dev)
+            verbose=False)
 
     t0 = time.perf_counter()
     bench = make(16, 2)
     print("bench solver built: %d dofs, %.2f s"
           % (bench.Z.dim, time.perf_counter() - t0), flush=True)
+    t0 = time.perf_counter()
+    big = make(16, 3)
+    print("nref=3 solver built: %d dofs, %.2f s"
+          % (big.Z.dim, time.perf_counter() - t0), flush=True)
     vmg = bench.vmg
     ops = [("K1 smoother L%d" % l, vmg.patch_solvers[l - 1][1])
            for l in (2, 1)]
     ops += [("K1 schoeberl L%d" % (t.l + 1), t.papply)
             for t in reversed(vmg.schoeberl)]
     ops += [("K2 level L%d" % l, vmg.levels[l].matvec) for l in (2, 1)]
+    ops += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1]),
+            ("K2 level nref3", big.vmg.levels[-1].matvec)]
+    flush_buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
+                            device=dev)
     rng = np.random.default_rng(0)
-    table = {}
-    print("%-18s %11s %9s  %s" % (
-        "operator", "blocks x m", "rel err",
-        "ms per call, eager (device only): kernel | plain"))
+    print("%-17s %11s %-6s %8s  %s" % (
+        "operator", "blocks x m", "masks", "rel err",
+        "kernel ms eager (device, cold) | bound, share | plain ms eager "
+        "(device) | library ms eager (device)"))
+    table = []
     for name, op in ops:
-        nb, m = op.idx.shape
-        A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
-        x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
-        Y = kernels.gather_bgemv(A, x, op.idx, op.use)
-        res = {
-            "op": _compare(name, lambda: op(A, x), lambda: op.plain(A, x)),
-            "gather_bgemv": _compare(
-                name + " gather_bgemv",
-                lambda: kernels.gather_bgemv(A, x, op.idx, op.use),
-                lambda: kernels.plain_gather_bgemv(A, x, op.idx)),
-            "csr_segment_sum": _compare(
-                name + " csr_segment_sum",
-                lambda: kernels.csr_segment_sum(Y, op.offsets, op.slots,
-                                                op.use),
-                lambda: kernels.plain_csr_segment_sum(Y, op.offsets,
-                                                      op.slots)),
-        }
-        table[name] = res
-        for part in ("op", "gather_bgemv", "csr_segment_sum"):
-            r = res[part]
-            print("%-18s %6d x %-2d %9.2e  %s (%s) | %s (%s)  [%s]" % (
-                name, nb, m, r["rel_err"], _fmt(r["ms"]), _fmt(r["dev_ms"]),
-                _fmt(r["plain_ms"]), _fmt(r["plain_dev_ms"]), part),
-                flush=True)
+        table += _check_kernel(name, op, rng, flush_buf.zero_)
+    del flush_buf
 
     # 4. reference parity at the small config
     small = make(4, 1)
@@ -234,21 +323,19 @@ def main():
     bench.z_last = bench.z
     kernels.reset_launch_counts()
     rows, t_bench = _solve_sweep(bench, BENCH_RES)
-    launches = {fn.__name__: dict(fn.launches)
-                for fn in (kernels.gather_bgemv, kernels.csr_segment_sum)}
+    launches = dict(kernels.GatherGemvScatter.launches)
     krylov = sum(r[1] for r in rows)
     newton = sum(r[2] for r in rows)
     print("bench config: %d dofs, Re 1->10->100 in %.3f s, Krylov %d, "
-          "Newton %d, launches %s" % (bench.Z.dim, t_bench, krylov, newton,
-                                      launches), flush=True)
-    if newton != 7 or abs(krylov - 22) > 2:
-        raise AssertionError("bench counts %d/%d, expected 22+-2 / 7"
-                             % (krylov, newton))
-    for fn_name, per_use in launches.items():
-        for use in ("K1", "K2"):
-            if per_use[use] <= 0:
-                raise AssertionError("%s was not launched for %s on the "
-                                     "main path" % (fn_name, use))
+          "Newton %d, fused kernel launches per use %s"
+          % (bench.Z.dim, t_bench, krylov, newton, launches), flush=True)
+    if (krylov, newton) != BENCH_COUNTS:
+        raise AssertionError("bench counts %d/%d, expected %d/%d"
+                             % ((krylov, newton) + BENCH_COUNTS))
+    for use in ("K1", "K2"):
+        if launches[use] <= 0:
+            raise AssertionError("the fused kernel was not launched for %s "
+                                 "on the main path" % use)
 
     # where the time goes: one Newton linear step of the Re=100 solve
     # (from the Re=10 state) under torch.profiler
@@ -259,6 +346,7 @@ def main():
     F = bench.residual_masked(z, params)
     tstate = bench._transfer_setup(params)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -268,8 +356,11 @@ def main():
     kern = _device_kernels(prof)
     busy = sum(us for _, us in kern) / 1e6
     print("profiled linear step: %d Krylov its, %.3f s wall (profiler on), "
-          "%d kernels, device busy %.3f s = %.1f%% of wall"
-          % (its, wall, len(kern), busy, 100.0 * busy / wall), flush=True)
+          "%d kernels (%.0f per Krylov it), device busy %.3f s = %.1f%% of "
+          "wall; fused kernel launches %s"
+          % (its, wall, len(kern), len(kern) / max(its, 1), busy,
+             100.0 * busy / wall, dict(kernels.GatherGemvScatter.launches)),
+          flush=True)
     by_name = {}
     for kname, us in kern:
         n_us = by_name.setdefault(kname[:70], [0, 0.0])
@@ -290,10 +381,6 @@ def main():
           "%.3f ms per call" % (ms_jvp, ms_res), flush=True)
 
     # 6. nref=3
-    t0 = time.perf_counter()
-    big = make(16, 3)
-    print("nref=3 solver built: %d dofs, %.2f s"
-          % (big.Z.dim, time.perf_counter() - t0), flush=True)
     _, t_big = _solve_sweep(big, [1, 10])
     print("nref=3: Re 1->10 in %.3f s" % t_big, flush=True)
 
@@ -302,14 +389,16 @@ def main():
     entries = []
     for use, name, replaces in (("K1", "K1 smoother L2", PALLAS_GEMV),
                                 ("K2", "K2 level L2", XLA_LEVEL_APPLY)):
-        for kname in ("gather_bgemv", "csr_segment_sum"):
-            r = table[name][kname]
-            entries.append({
-                "name": "%s (%s, %s)" % (kname, use, name),
-                "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[kname][use],
-                "max_abs_err": r["abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]})
+        r = next(r for r in table if r["name"] == name and r["masked"])
+        entries.append({
+            "name": "gather_gemv_scatter (%s, %s, masked)" % (use, name),
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[use],
+            "max_abs_err": max(t["abs_err"] for t in table
+                               if t["name"].startswith(use)),
+            "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_dev_ms"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,3 +98,15 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_topology_source_is_a_copy():
+    """The port compiles its own copy of the native topology helper; it
+    must stay byte-for-byte the JAX package's."""
+    with open(os.path.join(REPO, "alfi_torch", "native", "topology.cpp"),
+              "rb") as f:
+        port = f.read()
+    with open(os.path.join(REPO, "alfi_tpu", "native", "topology.cpp"),
+              "rb") as f:
+        ref = f.read()
+    assert port == ref

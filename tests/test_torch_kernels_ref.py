@@ -1,5 +1,6 @@
-"""The kernels' plain versions against the JAX package, and the CUDA
-kernels against their plain versions (on a card only).
+"""The fused gather-GEMV-scatter's plain version against the JAX package
+and a numpy reference, and the CUDA kernel against its plain version (on a
+card only).
 
 * K2, the level matvec: alfi_torch VelocityMG.level_apply (plain path on
   the CPU) vs alfi_tpu VelocityMG.level_apply, normwise relative 1e-12
@@ -73,14 +74,22 @@ def test_level_apply_matches_jax(solvers, jnp):
 
 @pytest.mark.parametrize("kind", ["smoother", "schoeberl"])
 def test_patch_apply_matches_jax(solvers, jnp, kind):
+    """The fused K1 call (masks folded in) against the JAX patch apply
+    with the masks its callers put around it."""
     t, j = solvers
     w = _wind(t, 3)
     tform, jform = t.vmg.levels[1].form, j.vmg.levels[1].form
+    r = np.random.default_rng(5).standard_normal(
+        t.vmg.levels[1].V.ndof * 2)
     if kind == "smoother":
         (tfac, tapply), (jfac, japply) = (t.vmg.patch_solvers[0],
                                           j.vmg.patch_solvers[0])
         Tt = tform.velocity_element_tensors(PARAMS, torch.as_tensor(w))
         Tj = jform.velocity_element_tensors(PARAMS, jnp.asarray(w))
+        mask = np.asarray(j.vmg.levels[1].mask_flat)
+        out_t = tapply(tfac(Tt), torch.as_tensor(r), torch.as_tensor(r))
+        out_j = (mask * np.asarray(japply(jfac(Tj), jnp.asarray(mask * r)))
+                 + (1.0 - mask) * r)
     else:
         ts, js = t.vmg.schoeberl[0], j.vmg.schoeberl[0]
         tfac, tapply, jfac, japply = ts.factor, ts.papply, js.factor, \
@@ -88,44 +97,109 @@ def test_patch_apply_matches_jax(solvers, jnp, kind):
         p0 = dict(PARAMS, advect=0.0)
         Tt = tform.velocity_element_tensors(p0, torch.as_tensor(w))
         Tj = jform.velocity_element_tensors(p0, jnp.asarray(w))
-    r = np.random.default_rng(5).standard_normal(
-        t.vmg.levels[1].V.ndof * 2)
-    out_t = tapply(tfac(Tt), torch.as_tensor(r))
-    out_j = japply(jfac(Tj), jnp.asarray(r))
+        zmask = np.asarray(js.zmask).reshape(-1)
+        out_t = tapply(tfac(Tt), torch.as_tensor(r))
+        out_j = japply(jfac(Tj), jnp.asarray(zmask * r))
     assert _rel(out_t, out_j) < 1e-7
 
 
+def _table(rng, nb, m, n):
+    """Random (nb, m) index table into [0, n) with pads on both sides."""
+    return rng.integers(-3, n + 3, size=(nb, m))
+
+
+def _reference(A, x, idx, n, in_mask=None, out_mask=None, p=None):
+    """out_mask * sum_b S_b^T A_b S_b (in_mask * x) + (1 - out_mask) * p
+    in numpy: einsum, then np.add.at (index_add) over the real entries."""
+    xin = x if in_mask is None else in_mask * x
+    real = (idx >= 0) & (idx < n)
+    xg = np.where(real, xin[np.clip(idx, 0, n - 1)], 0.0)
+    Y = np.einsum("bij,bj->bi", A, xg)
+    acc = np.zeros(n)
+    np.add.at(acc, idx[real], Y[real])
+    return acc if out_mask is None else out_mask * acc + (1 - out_mask) * p
+
+
 def test_plain_gather_bgemv_reads_pads_as_zero():
+    """The fused op's plain version: an index entry outside [0, n) reads
+    0 and owns no output."""
     rng = np.random.default_rng(0)
     nb, m, n = 7, 5, 20
     A = rng.standard_normal((nb, m, m))
     x = rng.standard_normal(n)
-    idx = rng.integers(-3, n + 3, size=(nb, m))
-    xg = np.where((idx >= 0) & (idx < n), x[np.clip(idx, 0, n - 1)], 0.0)
-    ref = np.einsum("bij,bj->bi", A, xg)
-    out = kernels.gather_bgemv(torch.as_tensor(A), torch.as_tensor(x),
-                               torch.as_tensor(idx, dtype=torch.int32),
-                               "K1")
-    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-14, atol=1e-14)
+    idx = _table(rng, nb, m, n)
+    op = kernels.GatherGemvScatter(idx, n, "K1", device="cpu")
+    out = op(torch.as_tensor(A), torch.as_tensor(x))
+    np.testing.assert_allclose(out.numpy(), _reference(A, x, idx, n),
+                               rtol=1e-14, atol=1e-14)
+    # x at a pad-only dof does not matter
+    hit = np.zeros(n, bool)
+    hit[idx[(idx >= 0) & (idx < n)]] = True
+    x2 = np.where(hit, x, 1e300)
+    out2 = op(torch.as_tensor(A), torch.as_tensor(x2))
+    np.testing.assert_array_equal(out2.numpy(), out.numpy())
 
 
 def test_csr_segment_sum_is_the_scatter_adjoint():
+    """The fused op's scatter is the adjoint of its gather:
+    <y, op(A) x> = <op(A^T) y, x>; and the kernel's CSR lists run in
+    ascending slot order within each dof."""
     rng = np.random.default_rng(1)
     nb, m, n = 9, 4, 15
     idx = rng.integers(0, n + 2, size=(nb, m))  # n, n+1 are pads
-    offsets, slots = kernels.csr_from_table(idx, n)
-    vals = rng.standard_normal((nb, m))
-    ref = np.zeros(n)
-    keep = idx < n
-    np.add.at(ref, idx[keep], vals[keep])
-    out = kernels.csr_segment_sum(torch.as_tensor(vals),
-                                  torch.as_tensor(offsets),
-                                  torch.as_tensor(slots), "K1")
-    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-14, atol=1e-14)
-    # the list runs in ascending slot order within each dof
+    A = rng.standard_normal((nb, m, m))
+    x, y = rng.standard_normal(n), rng.standard_normal(n)
+    op = kernels.GatherGemvScatter(idx, n, "K1", device="cpu")
+    yAx = float(torch.as_tensor(y) @ op(torch.as_tensor(A),
+                                        torch.as_tensor(x)))
+    At = torch.as_tensor(A.transpose(0, 2, 1).copy())
+    Aty_x = float(op(At, torch.as_tensor(y)) @ torch.as_tensor(x))
+    assert abs(yAx - Aty_x) <= 1e-13 * max(abs(yAx), 1.0)
+    offsets, slots = op.offsets.numpy(), op.slots.numpy()
     for k in range(n):
         seg = slots[offsets[k]:offsets[k + 1]]
         assert np.all(np.diff(seg) > 0)
+        assert np.all(idx.reshape(-1)[seg] == k)
+
+
+@pytest.mark.parametrize("masks", ["none", "in", "out", "in_out"])
+@pytest.mark.parametrize("m", [6, 12, 14])
+def test_fused_op_plain_matches_reference(m, masks):
+    rng = np.random.default_rng(100 + m)
+    nb, n = 40, 3 * m + 7
+    A = rng.standard_normal((nb, m, m))
+    x, p = rng.standard_normal(n), rng.standard_normal(n)
+    idx = _table(rng, nb, m, n)
+    in_mask = (rng.random(n) < 0.7).astype(float) if "in" in masks else None
+    out_mask = ((rng.random(n) < 0.7).astype(float) if "out" in masks
+                else None)
+    op = kernels.GatherGemvScatter(idx, n, "K2", in_mask=in_mask,
+                                   out_mask=out_mask, device="cpu")
+    out = op(torch.as_tensor(A), torch.as_tensor(x),
+             None if out_mask is None else torch.as_tensor(p))
+    ref = _reference(A, x, idx, n, in_mask, out_mask, p)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.parametrize("which", ["in_mask", "out_mask"])
+@pytest.mark.parametrize("bad", [0.5, 2.0, -1.0])
+def test_non_binary_mask_raises(which, bad):
+    mask = np.ones(6)
+    mask[2] = bad
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        kernels.GatherGemvScatter(np.array([[0, 1], [2, 5]]), 6, "K1",
+                                  device="cpu", **{which: mask})
+
+
+def test_passthrough_goes_with_the_out_mask():
+    A = torch.ones((2, 2, 2), dtype=torch.float64)
+    x = torch.ones(3, dtype=torch.float64)
+    idx = np.array([[0, 1], [1, 2]])
+    with pytest.raises(ValueError, match="passthrough"):
+        kernels.GatherGemvScatter(idx, 3, "K1", out_mask=np.ones(3),
+                                  device="cpu")(A, x)
+    with pytest.raises(ValueError, match="passthrough"):
+        kernels.GatherGemvScatter(idx, 3, "K1", device="cpu")(A, x, x)
 
 
 def test_cpu_tensors_never_count_launches():
@@ -135,14 +209,16 @@ def test_cpu_tensors_never_count_launches():
     A = torch.ones((2, 2, 2), dtype=torch.float64)
     out = op(A, torch.ones(3, dtype=torch.float64))
     np.testing.assert_array_equal(out.numpy(), [2.0, 4.0, 2.0])
-    assert kernels.gather_bgemv.launches == {"K1": 0, "K2": 0}
-    assert kernels.csr_segment_sum.launches == {"K1": 0, "K2": 0}
+    assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4225, 14), (2048, 6), (8192, 12),
-                                   (300, 64)])
+                                   (300, 64), (500, 2)])
 def test_cuda_kernels_match_plain(shape):
+    """The fused kernel against its plain version on the card, masked
+    (in and out, with passthrough) and unmasked; bitwise equal across
+    two launches; one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -150,14 +226,40 @@ def test_cuda_kernels_match_plain(shape):
     n = nb * m // 3
     rng = np.random.default_rng(0)
     idx = rng.integers(0, n + 1, size=(nb, m))  # n is the pad
-    op = kernels.GatherGemvScatter(idx, n, "K1", device=dev)
+    mask = (rng.random(n) < 0.8).astype(float)
     A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
     x = torch.as_tensor(rng.standard_normal(n), device=dev)
-    before = kernels.gather_bgemv.launches["K1"]
-    yk, yp = op(A, x), op.plain(A, x)
-    torch.cuda.synchronize()
-    assert kernels.gather_bgemv.launches["K1"] == before + 1
-    err = float((yk - yp).abs().max() / yp.abs().max())
-    assert err <= 1e-13
-    with pytest.raises(ValueError):
-        kernels.gather_bgemv(A[:, :, :1].contiguous(), x, op.idx, "K1")
+    p = torch.as_tensor(rng.standard_normal(n), device=dev)
+    for masks, args in (({}, ()),
+                        ({"in_mask": mask, "out_mask": mask}, (p,))):
+        op = kernels.GatherGemvScatter(idx, n, "K1", device=dev, **masks)
+        before = kernels.GatherGemvScatter.launches["K1"]
+        yk, yk2, yp = op(A, x, *args), op(A, x, *args), op.plain(A, x, *args)
+        torch.cuda.synchronize()
+        assert kernels.GatherGemvScatter.launches["K1"] == before + 2
+        assert torch.equal(yk, yk2)
+        err = float((yk - yp).abs().max() / yp.abs().max())
+        assert err <= 1e-13
+        with pytest.raises(ValueError):
+            op(A[:, :, :1].contiguous(), x, *args)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_what_it_does_not_take():
+    """An odd m, an m above 64 and an A that is not 16-byte aligned raise
+    on the card (the plain version takes them on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    for m in (7, 66):
+        with pytest.raises(ValueError, match="even m"):
+            kernels.GatherGemvScatter(rng.integers(0, 50, size=(10, m)), 50,
+                                      "K1", device=dev)
+    nb, m, n = 1000, 14, 3000
+    op = kernels.GatherGemvScatter(rng.integers(0, n, size=(nb, m)), n,
+                                   "K2", device=dev)
+    buf = torch.zeros(nb * m * m + 1, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        op(buf[1:].view(nb, m, m), x)

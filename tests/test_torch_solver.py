@@ -97,3 +97,33 @@ def test_state_from_numpy_places_f64_on_device():
     assert all(x.dtype == torch.float64 and x.device.type == "cpu"
                for x in z)
     assert z[0].shape == (3, 2) and z[1].tolist() == [1.0, 2.0]
+
+
+def test_entry_points_default_to_the_card():
+    """The solvers run on the card unless the caller asks for the CPU;
+    no public callable of the port takes a device that defaults to the
+    CPU or to "pick one"."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import alfi_torch
+    from alfi_torch.solver import ConstantPressureSolver, NavierStokesSolver
+
+    for cls in (NavierStokesSolver, ConstantPressureSolver):
+        dev = inspect.signature(cls).parameters["device"]
+        assert dev.default == "cuda"
+    for info in pkgutil.walk_packages(alfi_torch.__path__, "alfi_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if (name.startswith("_") or not callable(obj)
+                    or not getattr(obj, "__module__", "").startswith(
+                        "alfi_torch")):
+                continue
+            try:
+                params = inspect.signature(obj).parameters
+            except (TypeError, ValueError):
+                continue
+            dev = params.get("device")
+            if dev is not None and dev.default is not inspect.Parameter.empty:
+                assert dev.default == "cuda", (info.name, name, dev.default)
