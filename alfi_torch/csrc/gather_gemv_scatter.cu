@@ -14,9 +14,9 @@
 // out-mask is 0 are empty, so their A rows are never read.
 //
 // Uses on the almg main path:
-//   K1  patch apply: A_b = explicit patch inverses, idx = PatchSet.dofs
-//       (smoother PC with the level's BC mask in and out and pass = r;
-//       Schoeberl patch solves with the coarse-skeleton mask in only).
+//   K1  patch apply: A_b = explicit patch inverses, idx = PatchSet.dofs,
+//       which holds no masked dof, so no in-mask (smoother PC with the
+//       level's BC mask out and pass = r; Schoeberl patch solves bare).
 //       Replaces the TPU kernel alfi_tpu/solvers/patch_pallas.py
 //       _gemv_kernel / apply_transposed_pallas (pallas_call at :81;
 //       deleted in aaee1ce, read it with
@@ -32,8 +32,8 @@
 // nref=2, n = 33,282): K1 reads at most 4,225 x 14 x 14 x 8 B = 6.6 MB of
 // inverses, K2 at most 8,192 x 12 x 12 x 8 B = 9.4 MB of element tensors
 // (pad rows and rows of masked-out dofs are not read); the index table,
-// x, pass and out add under 1.5 MB.  At 3.35 TB/s that is about 2.3 and
-// 3.2 us.
+// x, pass and out add under 1.5 MB.  At 3.35 TB/s that is at most about
+// 2.3 and 3.2 us; chip_smoke.py counts each table's bytes exactly.
 //
 // What the design does about it: every A row is read once, in one pass,
 // with 16-byte loads, and nothing else goes through device memory: no

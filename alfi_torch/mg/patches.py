@@ -328,7 +328,7 @@ def make_patch_factor_parts(patchset):
     return factor_parts
 
 
-def build_patch_solver(patchset, *, in_mask=None, out_mask=None, device):
+def build_patch_solver(patchset, *, out_mask=None, device):
     """Device operators over a PatchSet:
 
     factor(tensors (nc, nld, nld)) -> (np, m, m) explicit patch inverses
@@ -336,8 +336,10 @@ def build_patch_solver(patchset, *, in_mask=None, out_mask=None, device):
                                    -> additive-Schwarz application,
                                       sum_p R_p^T inv_p R_p r (kernel K1;
                                       a GatherGemvScatter on the patch
-                                      dof table with the given 0/1
-                                      masks, see alfi_torch/kernels.py)
+                                      dof table, see alfi_torch/kernels.py)
+
+    The table holds no dof that the PatchSet's mask drops, so the input
+    needs no mask; an ``out_mask`` selects ``passthrough`` at its 0s.
     """
 
     def factor(tensors):
@@ -345,5 +347,4 @@ def build_patch_solver(patchset, *, in_mask=None, out_mask=None, device):
                                                       tensors)).contiguous()
 
     return factor, GatherGemvScatter(patchset.dofs, patchset.nflat, "K1",
-                                     in_mask=in_mask, out_mask=out_mask,
-                                     device=device)
+                                     out_mask=out_mask, device=device)

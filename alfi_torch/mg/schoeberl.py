@@ -73,8 +73,7 @@ class SchoeberlTransfer:
         _, groups = self._patch_cell_groups(hierarchy, l)
         ps = cell_patches(V, zmask.reshape(-1), groups)
         self.patchset = ps
-        self.factor, self.papply = build_patch_solver(
-            ps, in_mask=self.zmask, device=mg.device)
+        self.factor, self.papply = build_patch_solver(ps, device=mg.device)
 
     @staticmethod
     def _patch_cell_groups(hierarchy, l):
@@ -124,7 +123,8 @@ class SchoeberlTransfer:
         return lev.sum_cells(rloc).reshape(lev.V.ndof, self.mg.d)
 
     def _patch_solve(self, lufac, r):
-        """M (zmask * r), the zmask folded into kernel K1."""
+        """M (zmask * r) in one call of kernel K1: the patch table holds
+        no dof whose zmask is 0, so M never reads r there."""
         x = self.papply(lufac, r.reshape(-1))
         return x.reshape(-1, self.mg.d)
 

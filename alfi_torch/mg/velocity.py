@@ -121,8 +121,7 @@ class VelocityMG:
             ps = star_patches(lev.V, lev.mask_flat.cpu().numpy())
             self.patchsets.append(ps)
             self.patch_solvers.append(build_patch_solver(
-                ps, in_mask=lev.mask_flat, out_mask=lev.mask_flat,
-                device=self.device))
+                ps, out_mask=lev.mask_flat, device=self.device))
             self.factor_parts.append(make_patch_factor_parts(ps))
         self.schoeberl = [
             SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)

@@ -4,12 +4,10 @@ two-kernel design (``gather_bgemv`` + ``csr_segment_sum``, file
 ``alfi_torch/csrc/block_gemv.cu`` of commit 84526f7) on one NVIDIA GPU.
 
     git show 84526f7:alfi_torch/csrc/block_gemv.cu > PAIR.cu
-    python3 -m scripts.torch_gemv_pair_vs_fused PAIR.cu
+    python3 chip_pair_vs_fused.py PAIR.cu
 
-(from the repository root, as a module: run as a file, this directory's
-``queue.py`` would shadow the standard library's).
-
-Both run unmasked on the same inputs (random f64 from
+A record of the comparison made before the pair was deleted; the port
+no longer has the pair, and nothing else runs this script.  Both run unmasked on the same inputs (random f64 from
 ``numpy.random.default_rng(0)``) at the six main-path shapes of the bench
 config (ldc2d baseN=16, nref=2: the K1 smoother and Schoeberl patch
 tables and the K2 cell tables of levels 2 and 1).  Prints, per shape, the

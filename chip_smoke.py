@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. hold the fused gather-GEMV-scatter kernel against its plain PyTorch
    version on the card at every main-path shape (the bench config's K1
    smoother, K1 Schoeberl and K2 tables of levels 2 and 1, and the nref=3
-   fine level's K1 and K2 tables), each with the main path's masks and
-   without, on random f64 inputs from ``numpy.random.default_rng(0)``:
+   fine level's K1 and K2 tables), each bare and masked (the main path's
+   masks; the Schoeberl tables, which the main path calls bare, with
+   their coarse-skeleton mask in and out), on random f64 inputs from
+   ``numpy.random.default_rng(0)``:
    max relative error <= 1e-13 and two launches bitwise equal; print the
    eager and device times of kernel, plain version and one cuSPARSE CSR
    SpMV of the same operator (``library``), the kernel's device time with
@@ -130,23 +132,33 @@ def _library_operator(op, A):
 
 
 def _bound(op):
-    """(ms, "bytes" or "operations"): the least time of one call, from the
-    bytes it must move (A rows it needs, the index table, x, the masks as
-    bytes, passthrough, out; each once) and its f64 multiply-adds."""
+    """(ms, "bytes" or "operations"): the least time of one call, from
+    what this table's data needs, each once: the A entries whose row
+    feeds a live output dof and whose column gathers a live dof (one f64
+    multiply-add each), the index table, x at the dofs gathered, the
+    in-mask only where it zeroes a gathered entry, the out-mask, the
+    passthrough where the out-mask is 0, and out."""
+    import torch
+
     nb, m, _ = op.ashape
-    rows = int(op.slots.numel())  # A rows owned by a live output dof
-    nbytes = rows * m * 8 + nb * m * 4 + 2 * op.n * 8
-    nbytes += (op.in_keep is not None) * op.n
-    nbytes += (op.out_keep is not None) * op.n * 9  # mask and passthrough
+    live = op.gidx >= 0  # gathered entries: not a pad, in-mask 1
+    entries = int(live.sum(1)[op.slots.long() // m].sum())
+    nbytes = (8 * entries + 4 * nb * m + 8 * op.n
+              + 8 * int(torch.unique(op.gidx[live]).numel()))
+    if op.in_keep is not None and bool(((op.pidx < op.n) & ~live).any()):
+        nbytes += op.n
+    if op.out_keep is not None:
+        nbytes += op.n + 8 * int((~op.out_keep).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * rows * m / F64_FLOP_PER_S
+    t_ops = 2.0 * entries / F64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_kernel(name, op, rng, flush):
-    """The fused kernel against its plain version on ``op``'s table, with
-    its masks and without; returns one result dict per variant."""
+def _check_kernel(name, op, rng, flush, mask=None):
+    """The fused kernel against its plain version on ``op``'s table, bare
+    and masked (with ``op``'s masks, or ``mask`` in and out where the main
+    path calls ``op`` bare); returns one result dict per variant."""
     import torch
 
     from alfi_torch.kernels import GatherGemvScatter
@@ -156,8 +168,11 @@ def _check_kernel(name, op, rng, flush):
     A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
     x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
     p = torch.as_tensor(rng.standard_normal(op.n), device=dev)
-    bare = GatherGemvScatter(op.pidx.cpu().numpy(), op.n, op.use,
-                             device=dev)
+    idx = op.pidx.cpu().numpy()
+    bare = GatherGemvScatter(idx, op.n, op.use, device=dev)
+    if op.in_keep is None and op.out_keep is None:
+        op = GatherGemvScatter(idx, op.n, op.use, in_mask=mask,
+                               out_mask=mask, device=dev)
     lib = _library_operator(bare, A)
 
     def library():
@@ -285,13 +300,14 @@ def main():
     print("nref=3 solver built: %d dofs, %.2f s"
           % (big.Z.dim, time.perf_counter() - t0), flush=True)
     vmg = bench.vmg
-    ops = [("K1 smoother L%d" % l, vmg.patch_solvers[l - 1][1])
+    ops = [("K1 smoother L%d" % l, vmg.patch_solvers[l - 1][1], None)
            for l in (2, 1)]
-    ops += [("K1 schoeberl L%d" % (t.l + 1), t.papply)
+    ops += [("K1 schoeberl L%d" % (t.l + 1), t.papply, t.zmask)
             for t in reversed(vmg.schoeberl)]
-    ops += [("K2 level L%d" % l, vmg.levels[l].matvec) for l in (2, 1)]
-    ops += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1]),
-            ("K2 level nref3", big.vmg.levels[-1].matvec)]
+    ops += [("K2 level L%d" % l, vmg.levels[l].matvec, None)
+            for l in (2, 1)]
+    ops += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None),
+            ("K2 level nref3", big.vmg.levels[-1].matvec, None)]
     flush_buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
                             device=dev)
     rng = np.random.default_rng(0)
@@ -300,8 +316,8 @@ def main():
         "kernel ms eager (device, cold) | bound, share | plain ms eager "
         "(device) | library ms eager (device)"))
     table = []
-    for name, op in ops:
-        table += _check_kernel(name, op, rng, flush_buf.zero_)
+    for name, op, mask in ops:
+        table += _check_kernel(name, op, rng, flush_buf.zero_, mask)
     del flush_buf
 
     # 4. reference parity at the small config

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``alfi_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package, or reads a file of the
-JAX package.
+"""The port stands alone: no module of ``alfi_torch`` and none of its
+card scripts (``chip_*.py``: ``chip_smoke.py`` and the on-card
+comparisons beside it) imports jax or the JAX package, or reads a file
+of the JAX package.
 
 The scan reads each file's syntax tree.  It rejects
 
@@ -15,6 +16,7 @@ Comments and docstrings may name the reference.
 """
 
 import ast
+import glob
 import os
 import re
 
@@ -27,7 +29,7 @@ _LABEL = re.compile(r"alfi_tpu/[\w/.-]+\.\w+:\d+")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = glob.glob(os.path.join(REPO, "chip_*.py"))
     for root, _, files in os.walk(os.path.join(REPO, "alfi_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

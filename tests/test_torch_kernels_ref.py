@@ -103,6 +103,55 @@ def test_patch_apply_matches_jax(solvers, jnp, kind):
     assert _rel(out_t, out_j) < 1e-7
 
 
+@pytest.mark.parametrize("kind", ["smoother", "schoeberl"])
+def test_patch_tables_hold_no_masked_dof(solvers, kind):
+    """K1 needs no in-mask: a PatchSet drops every dof its mask zeroes,
+    so the main path binds none (the smoother binds only its out-mask)."""
+    t = solvers[0]
+    if kind == "smoother":
+        ps, op = t.vmg.patchsets[0], t.vmg.patch_solvers[0][1]
+        mask = t.vmg.levels[1].mask_flat.numpy()
+        assert op.out_keep is not None
+    else:
+        ts = t.vmg.schoeberl[0]
+        ps, op, mask = ts.patchset, ts.papply, ts.zmask.numpy().reshape(-1)
+        assert op.out_keep is None
+    assert op.in_keep is None
+    real = ps.dofs[ps.dofs < ps.nflat]
+    assert (mask == 0).any() and np.all(mask[real] == 1)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("masked, nbytes", [(False, 128), (True, 110)])
+def test_bound_counts_what_the_function_needs(masked, nbytes):
+    """chip_smoke's bound on a table small enough to count by hand:
+    idx [[0, 1], [1, 2]], n = 3, with the mask [1, 1, 0] in and out or
+    none.  Bare: 8 A entries, the 4 indices, x at 3 dofs, 3 outputs =
+    64 + 16 + 24 + 24 B.  Masked: the A entries of rows owned by dofs 0,
+    1 and columns gathering dofs 0, 1 (5), the indices, x at 2 dofs, the
+    out, the in-mask (it zeroes idx 2) and out-mask, passthrough at dof 2
+    = 40 + 16 + 16 + 24 + 3 + 3 + 8 B."""
+    cs = _chip_smoke()
+    mask = np.array([1.0, 1.0, 0.0]) if masked else None
+    op = kernels.GatherGemvScatter(np.array([[0, 1], [1, 2]]), 3, "K2",
+                                   in_mask=mask, out_mask=mask, device="cpu")
+    ms, by = cs._bound(op)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / cs.HBM_BYTES_PER_S,
+                               rel=1e-12)
+
+
 def _table(rng, nb, m, n):
     """Random (nb, m) index table into [0, n) with pads on both sides."""
     return rng.integers(-3, n + 3, size=(nb, m))
@@ -121,8 +170,10 @@ def _reference(A, x, idx, n, in_mask=None, out_mask=None, p=None):
 
 
 def test_plain_gather_bgemv_reads_pads_as_zero():
-    """The fused op's plain version: an index entry outside [0, n) reads
-    0 and owns no output."""
+    """The gather half of the fused op's plain version (the name is that
+    of the two-kernel design's gather kernel, which the fused kernel
+    replaced; the test keeps it): an index entry outside [0, n) reads 0
+    and owns no output."""
     rng = np.random.default_rng(0)
     nb, m, n = 7, 5, 20
     A = rng.standard_normal((nb, m, m))
@@ -141,7 +192,9 @@ def test_plain_gather_bgemv_reads_pads_as_zero():
 
 
 def test_csr_segment_sum_is_the_scatter_adjoint():
-    """The fused op's scatter is the adjoint of its gather:
+    """The scatter half of the fused op (the name is that of the
+    two-kernel design's CSR scatter kernel, which the fused kernel
+    replaced; the test keeps it) is the adjoint of its gather:
     <y, op(A) x> = <op(A^T) y, x>; and the kernel's CSR lists run in
     ascending slot order within each dof."""
     rng = np.random.default_rng(1)
