@@ -18,3 +18,4 @@ from .mg.patches import star_patches  # noqa: E402
 from .mg.schoeberl import SchoeberlTransfer  # noqa: E402
 from .problem import NavierStokesProblem  # noqa: E402
 from .solver import ConstantPressureSolver, NavierStokesSolver  # noqa: E402
+from .driver import get_default_parser, get_solver, run_solver  # noqa: E402

@@ -11,9 +11,10 @@ from ..config import real_dtype
 
 
 class CellGeometry:
-    """jinv: (nc, d, d) inverse Jacobian; detj: (nc,) |det J|; physical
-    gradient of a reference gradient g is jinv^T @ g.  Computed on the
-    host in f64 and moved to ``device`` once."""
+    """jinv: (nc, d, d) inverse Jacobian; detj: (nc,) |det J|; h: (nc,)
+    cell diameter; physical gradient of a reference gradient g is
+    jinv^T @ g.  Computed on the host in f64 and moved to ``device``
+    once."""
 
     def __init__(self, mesh, *, device):
         v = mesh.cell_coords()  # (nc, d+1, d)
@@ -28,3 +29,7 @@ class CellGeometry:
         self.jinv = dev(jinv)
         self.detj = dev(detj)
         self.vol = dev(detj / factorial(mesh.dim))
+        # cell diameter, matching Firedrake's CellSize (the SUPG
+        # coefficient's h)
+        diff = v[:, :, None, :] - v[:, None, :, :]
+        self.h = dev(np.sqrt((diff**2).sum(-1)).max(axis=(1, 2)))

@@ -6,7 +6,8 @@ Hand-derived element kernels for the reference's fixed form set:
       nu (2 sym grad u, grad v) + gamma (cell_avg(div u), div v)
       + advect ((grad u) u, v) - (p, div v) - (div u, q)
 
-(the ``sv`` form with the exact grad-div term is a later slice).
+(the ``sv`` form with the exact grad-div term is a later slice), plus
+the optional ``stabilisation`` hook (SUPG/GLS, alfi_torch/stabilisation.py).
 
 Every per-cell quantity is one einsum over a leading cell axis (the JAX
 package vmaps a single-cell kernel instead), and assembly is an
@@ -84,6 +85,9 @@ class NSForm:
                                   self.geom.jinv)
         self._static = None
         self._gd_factors = None
+        #: optional extra residual hook: fn(z, params) -> (Sv, Sq),
+        #: added by :meth:`residual` (the solver's stabilisation)
+        self.stabilisation = None
 
     # ------------------------------------------------------------------
     # per-cell kernels (batched over the leading cell axis)
@@ -143,10 +147,16 @@ class NSForm:
     def residual(self, z, params):
         """Assembled residual (Rv (ndofV, d), Rq (ndofQ,)).
 
-        No boundary conditions applied here (the solver masks rows)."""
+        No boundary conditions applied here (the solver masks rows); the
+        ``stabilisation`` hook's (Sv, Sq) is added when set."""
         u, p = z
         rv, rq = self.cell_residual(u[self.cd_v], p[self.cd_q], params)
-        return (self._sum_v(rv, u), self._sum_q(rq, p))
+        Rv, Rq = self._sum_v(rv, u), self._sum_q(rq, p)
+        if self.stabilisation is not None:
+            Sv, Sq = self.stabilisation(z, params)
+            Rv = Rv + Sv
+            Rq = Rq + Sq
+        return (Rv, Rq)
 
     # ------------------------------------------------------------------
     # element tensors (for patches / coarse grids), flattened with local

@@ -1,20 +1,35 @@
-"""Carry solver state across from numpy and from the JAX package's
+"""Carry solver state across from numpy and between the two packages'
 checkpoints.
 
-The JAX package's ``run_solver`` (``alfi_tpu/driver.py``) writes one npz per
-Reynolds number with the keys ``u`` (ndofV, d), ``p`` (ndofQ,),
-``numbering`` (the dof-numbering tag) and the scalar solve record
-``nu``, ``linear_iter``, ``nonlinear_iter``, ``time``, ``converged``.
-Both packages number dofs identically (the port's host layer is a copy
-of the reference's), so a state loads unchanged.
+Both packages' ``run_solver`` write one npz per Reynolds number with the
+keys ``u`` (ndofV, d), ``p`` (ndofQ,), ``numbering`` (the dof-numbering
+tag) and the scalar solve record ``nu``, ``linear_iter``,
+``nonlinear_iter``, ``time``, ``converged``.  Both packages number dofs
+identically (the port's host layer is a copy of the reference's), so a
+state loads unchanged either way.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from .config import real_dtype
+from .mesh.renumber import geom_numbering_3d_enabled, geom_numbering_enabled
+
+#: the solve record a checkpoint carries beside the state
+INFO_KEYS = ("nu", "linear_iter", "nonlinear_iter", "time", "converged")
+
+
+def numbering_tag():
+    """Entity-numbering fingerprint stored in checkpoints: dof vectors
+    are meaningless under a different numbering (mesh/renumber.py)."""
+    tag = "geom1" if geom_numbering_enabled() else "legacy0"
+    if geom_numbering_3d_enabled():
+        tag += "+3d"
+    return tag
 
 
 def state_from_numpy(u, p, device):
@@ -32,3 +47,15 @@ def load_checkpoint(path, device):
         z = state_from_numpy(f["u"], f["p"], device)
         meta = {k: f[k].item() for k in f.files if k not in ("u", "p")}
     return z, meta
+
+
+def save_checkpoint(path, z, info):
+    """Write state ``z`` (u, p) and the solve record ``info`` (the keys
+    of INFO_KEYS it has) to ``path`` in the npz layout above, under the
+    current numbering tag.  The file is written under a private name and
+    renamed, so a reader never sees a half-written checkpoint."""
+    tmp = "%s.tmp%d.npz" % (path, os.getpid())
+    np.savez(tmp, u=z[0].detach().cpu().numpy(),
+             p=z[1].detach().cpu().numpy(), numbering=numbering_tag(),
+             **{k: info[k] for k in INFO_KEYS if k in info})
+    os.replace(tmp, path)

@@ -8,13 +8,14 @@ on the coarse grid.
 
 Everything per-Newton-step (coarse winds by injection, per-cell element
 tensors, patch inverses, coarse LU) is rebuilt by :meth:`VelocityMG.setup`
-from (params, fine wind); the topology (patches, transfers, dof maps) is
-static host data turned into device tables once.  The level matvec runs
-kernel K2 and the patch smoother kernel K1 (alfi_torch/kernels.py).
+from (params, fine wind, fine pressure); the topology (patches,
+transfers, dof maps) is static host data turned into device tables once.
+The level matvec runs kernel K2 and the patch smoother kernel K1
+(alfi_torch/kernels.py).
 
 This slice ports the uniform-hierarchy choices of the flagship solve:
 star patches, additive composition, Schoeberl transfers, FMG cycle,
-dense coarse LU, no stabilisation.
+dense coarse LU, and SUPG/GLS terms in the level and patch operators.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..kernels import GatherGemvScatter
 from ..solvers.batched_lu import coarse_factor, coarse_solve
 from ..solvers.krylov import fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
+from ..stabilisation import make_stabilisation
 from .patches import (
     build_patch_solver,
     make_patch_factor_parts,
@@ -127,6 +129,30 @@ class VelocityMG:
             SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)
         ]
 
+        # stabilisation in the level operators: the reference assembles
+        # its PCMG/PCPatch operators from the full stabilised Jacobian
+        # (advect * stab in the form, alfi/solver.py:204-237, with the
+        # wind injected to every level, alfi/stabilisation.py:29-43);
+        # without these terms the preconditioner departs from the true
+        # Jacobian as Re grows.  One stabilisation per level, on that
+        # level's form; the fine level's is the solver's.
+        self.stab = None
+        st = solver.stabilisation
+        if st is not None:
+            self.stab = [
+                make_stabilisation(
+                    self.levels[l].form, solver.stabilisation_type,
+                    solver.supg_method, solver.supg_magic,
+                    solver.stabilisation_weight,
+                    char_LU=solver.char_L * solver.char_U)
+                for l in range(self.nlevels - 1)] + [st]
+            # P0 pressure injection: coarse cell = mean of its children
+            self.c2f_cells = [
+                torch.as_tensor(mh.coarse_to_fine_cells(l),
+                                dtype=torch.int64, device=self.device)
+                for l in range(self.nlevels - 1)
+            ]
+
     # ------------------------------------------------------------------
     # per-level masked operator from element tensors
     # ------------------------------------------------------------------
@@ -158,21 +184,40 @@ class VelocityMG:
         schoeberl = [t.static_ops() for t in self.schoeberl]
         return {"levels": levels, "schoeberl": schoeberl}
 
-    def setup(self, u_fine, params, schoeberl_state, static):
+    def setup(self, u_fine, params, schoeberl_state, static, p_fine=None):
         """Build the per-Newton-step state: winds, tensors, patch
-        inverses, coarse factorisation (the split, unstabilised form:
-        only the advection part is wind-dependent; the geometry-only
-        patch parts come from ``static`` = static_state(), the transfer
-        factorisations are ``schoeberl_state`` = transfer_setup())."""
+        inverses, coarse factorisation (the split form: only the
+        advection part, and the stabilisation's where one is wired, is
+        wind-dependent; the geometry-only patch parts come from
+        ``static`` = static_state(), the transfer factorisations are
+        ``schoeberl_state`` = transfer_setup()).  With a stabilisation
+        the fine pressure ``p_fine`` is required: its terms need the
+        pressure on every level."""
         winds = [None] * self.nlevels
         winds[-1] = u_fine
         for l in range(self.nlevels - 2, -1, -1):
             winds[l] = self.injects[l].apply(winds[l + 1])
+        if self.stab is not None:
+            if p_fine is None:
+                raise ValueError("the stabilised level operators need "
+                                 "p_fine")
+            press = [None] * self.nlevels
+            press[-1] = p_fine
+            for l in range(self.nlevels - 2, -1, -1):
+                press[l] = press[l + 1][self.c2f_cells[l]].mean(dim=1)
+            # the frozen (z_last) wind, injected per level like the live one
+            fwinds = [None] * self.nlevels
+            fwinds[-1] = params["wind"]
+            for l in range(self.nlevels - 2, -1, -1):
+                fwinds[l] = self.injects[l].apply(fwinds[l + 1])
         tensors, N_els = [], []
         for l in range(self.nlevels):
             form = self.levels[l].form
             K_el, G_el = form._static_velocity_tensors()
             N_el = form.advection_element_tensors(winds[l])
+            if self.stab is not None:
+                N_el = N_el + self.stab[l].velocity_tensors_hook(
+                    (winds[l], press[l]), dict(params, wind=fwinds[l]))
             M_el = params["nu"] * K_el + params["advect"] * N_el
             tensors.append(M_el + params["gamma"] * G_el)
             N_els.append(N_el)

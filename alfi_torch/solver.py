@@ -8,9 +8,10 @@ This slice ports the flagship mode:
   (alfi/solver.py:353-379),
 
 on ``ConstantPressureSolver`` ([Pk]^d - P0), a uniform hierarchy, star
-patches and no stabilisation.  Every tensor lives on ``device``: the
-card (``"cuda"``) unless the caller asks for another; nothing falls back
-to another device.
+patches, and optional SUPG/GLS stabilisation carried through the Newton
+Jacobian and the multigrid level and patch operators.  Every tensor
+lives on ``device``: the card (``"cuda"``) unless the caller asks for
+another; nothing falls back to another device.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from .solvers.fieldsplit import SchurPC, pressure_nullspace_projector
 from .solvers.krylov import fgmres
 from .solvers.linear import make_jacobian_matvec
 from .solvers.newton import newton
+from .stabilisation import make_stabilisation
+from .utils.events import timed_function, timed_region
 from .utils.tree import tnorm, tscale
 
 GREEN = "\033[1;37;32m%s\033[0m"
@@ -43,18 +46,31 @@ class NavierStokesSolver:
     """Base solver; subclasses fix the discretisation
     (alfi/solver.py:557-662)."""
 
-    def __init__(self, problem, nref=1, solver_type="almg", gamma=10000,
-                 k=5, hierarchy="bary", restriction=False, smoothing=None,
+    def __init__(self, problem, nref=1, solver_type="almg",
+                 stabilisation_type=None, supg_method="shakib",
+                 supg_magic=9.0, gamma=10000, k=5, hierarchy="bary",
+                 stabilisation_weight=None, restriction=False,
+                 smoothing=None, hierarchy_callback=None,
                  high_accuracy=False, verbose=True, *, device="cuda"):
         if solver_type != "almg":
             raise NotImplementedError(
-                "solver_type %r is not ported yet (only almg)" % solver_type)
+                "solver_type %r is not ported yet (only almg): ROADMAP.md "
+                "Queue 1 item 10" % solver_type)
         if hierarchy != "uniform":
             raise NotImplementedError(
-                "hierarchy %r is not ported yet (only uniform)" % hierarchy)
+                "hierarchy %r is not ported yet (only uniform): ROADMAP.md "
+                "Queue 1 item 9" % hierarchy)
+        if stabilisation_type == "none":
+            stabilisation_type = None
+        if stabilisation_type not in (None, "supg", "gls", "burman"):
+            raise ValueError("stabilisation_type %r" % stabilisation_type)
         self.problem = problem
         self.nref = nref
         self.solver_type = solver_type
+        self.stabilisation_type = stabilisation_type
+        self.supg_method = supg_method
+        self.supg_magic = supg_magic
+        self.stabilisation_weight = stabilisation_weight
         self.restriction = restriction
         self.hierarchy = hierarchy
         self.high_accuracy = high_accuracy
@@ -62,6 +78,8 @@ class NavierStokesSolver:
         self.device = torch.device(device)
 
         mh = problem.mesh_hierarchy(hierarchy, nref)
+        if hierarchy_callback is not None:
+            mh = hierarchy_callback(mh)
         self.mh = mh
         mesh = mh[-1]
         self.mesh = mesh
@@ -92,6 +110,8 @@ class NavierStokesSolver:
         self.z = self.bcset.apply(Z.zero(self.device))
         self.z_last = self.z
 
+        self.stabilisation = None
+        self._setup_stabilisation()
         self._tolerances()
         self._linear_step = self._build_almg_step(
             pressure_nullspace_projector(Z) if self.nsp else None)
@@ -104,6 +124,15 @@ class NavierStokesSolver:
 
     def make_form(self):
         raise NotImplementedError
+
+    def _setup_stabilisation(self):
+        if self.stabilisation_type is None:
+            return
+        self.stabilisation = make_stabilisation(
+            self.form, self.stabilisation_type, self.supg_method,
+            self.supg_magic, self.stabilisation_weight,
+            char_LU=self.char_L * self.char_U)
+        self.form.stabilisation = self.stabilisation.residual_hook
 
     # ------------------------------------------------------------------
     def _tolerances(self):
@@ -119,8 +148,13 @@ class NavierStokesSolver:
         self.tolerances = tol
 
     def params(self):
-        return {"nu": self.nu_val, "gamma": self.gamma,
-                "advect": self.advect_val}
+        p = {"nu": self.nu_val, "gamma": self.gamma,
+             "advect": self.advect_val}
+        if self.stabilisation is not None:
+            # frozen test-function wind = previous-Re velocity (the
+            # reference's z_last, alfi/solver.py:203,258)
+            p["wind"] = self.z_last[0]
+        return p
 
     def residual_masked(self, z, params):
         return self.bcset.zero_rows(self.form.residual(z, params))
@@ -142,7 +176,7 @@ class NavierStokesSolver:
 
         def lin(z, F, params, tstate):
             state = vmg.setup(z[0], params, schoeberl_state=tstate,
-                              static=static)
+                              static=static, p_fine=z[1])
             pc = SchurPC(form, mask_u, vmg.make_solve_A(state)).make_apply(
                 params)
             J = make_jacobian_matvec(form.residual, bcset, z, params)
@@ -173,6 +207,9 @@ class NavierStokesSolver:
             self.nu_val = self.char_L * self.char_U / re
         params = self.params()
 
+        if self.stabilisation is not None:
+            self.stabilisation.update(self.z[0])
+
         start = _time.perf_counter()
 
         def monitor(it, fnorm):
@@ -181,12 +218,19 @@ class NavierStokesSolver:
         tol = self.tolerances
         # transfer operators depend only on (nu, gamma): build once per Re
         tstate = self._transfer_setup(params)
-        z, ninfo = newton(
-            lambda zz: self.residual_masked(zz, params),
-            lambda zz, FF: self._linear_step(zz, FF, params, tstate),
-            self.z, maxit=20, rtol=tol["snes_rtol"],
-            atol=tol["snes_atol"], stol=tol["snes_stol"],
-            monitor=monitor if self.verbose else None)
+        # the first linear step builds the kernel and initialises cuBLAS
+        # and cuSOLVER: attribute it to a warm-up event so that KSPSolve
+        # stays a per-iteration quantity
+        residual_t = timed_function("SNESFunctionEval")(
+            lambda zz: self.residual_masked(zz, params))
+        linear_t = timed_function("KSPSolve", first_to="Warmup")(
+            lambda zz, FF: self._linear_step(zz, FF, params, tstate))
+        with timed_region("SNESSolve"):
+            z, ninfo = newton(
+                residual_t, linear_t,
+                self.z, maxit=20, rtol=tol["snes_rtol"],
+                atol=tol["snes_atol"], stol=tol["snes_stol"],
+                monitor=monitor if self.verbose else None)
         elapsed = _time.perf_counter() - start
         self.message(GREEN % (
             "Nonlinear solve %s in %d iterations (%s)" % (

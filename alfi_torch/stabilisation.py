@@ -1,0 +1,382 @@
+"""Advection stabilisation for [Pk]^d-P0: SUPG and GLS, ported from the
+JAX package's ``stabilisation.py`` (its cell-based part).
+
+Semantics, as in the reference (alfi/stabilisation.py, wired in
+alfi/solver.py:202-237):
+
+* the coefficient beta, the strong residual Lu and the SUPG test
+  direction (grad v) u use the LIVE state u, so they enter the Newton
+  Jacobian through the jvp of the residual;
+* only GLS's Lv advects with the FROZEN wind, the velocity of the
+  previous Reynolds solution, passed in as ``params["wind"]``;
+* the whole term is multiplied by ``advect`` (it vanishes for Stokes);
+* Shakib-Hughes-Zohan coefficient
+  beta = ((4 |u|^2 / h^2) + magic (4 nu / h^2)^2)^{-1/2}, weight 1.0 (2D)
+  / 0.1 (3D), magic 9.0 at the solver level; Turek's coefficient in
+  :class:`TurekSUPG`.
+
+The hook returns a full (Rv, Rq) contribution (GLS touches the pressure
+rows through grad q).  ``velocity_element_tensors`` gives the per-cell
+velocity-block Jacobian of the same residual for the multigrid level and
+patch operators.  Forcing terms are not ported (``NSForm`` rejects
+``rhs``), nor is Burman's facet stabilisation (Scott-Vogelius).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import real_dtype
+
+
+class ShakibSUPG:
+    """SUPG / GLS with the Shakib-Hughes-Zohan coefficient
+    (alfi/stabilisation.py:73-97)."""
+
+    def __init__(self, form, mode, magic=9.0, weight=None):
+        self.form = form
+        self.mode = mode  # 'supg' | 'gls'
+        self.magic = magic
+        d = form.dim
+        self.weight = weight if weight is not None else (
+            0.1 if d == 3 else 1.0)
+        tv, tq = form.tab_v, form.tab_q
+        # reference-element hessians and pressure gradients; the physical
+        # ones (Jinv^T H_ref Jinv on affine cells) are contracted per cell
+        self.href = torch.as_tensor(
+            form.V.element.tabulate_hess(tv.ref_pts), dtype=real_dtype,
+            device=form.device)  # (nq, nl, d, d)
+        self.gq_ref = tq.gphi  # (nq, nlq, d)
+        self.h = form.geom.h  # CellSize
+
+    # ------------------------------------------------------------------
+    # batched per-cell kernels
+    # ------------------------------------------------------------------
+    def aux_global(self, params):
+        """Global scalar entering the coefficient (0.0 for Shakib; Turek
+        overrides with the domain-averaged frozen-wind speed)."""
+        return 0.0
+
+    def _beta_batch(self, u_q, h, wdet, params, aux):
+        nu = params["nu"]
+        h2 = (h ** 2)[:, None]
+        w2 = torch.einsum("cqd,cqd->cq", u_q, u_q)
+        return (4.0 * w2 / h2
+                + self.magic * (4.0 * nu / h2) ** 2) ** (-0.5)
+
+    def residual_local(self, u_loc, p_loc, w_loc, jinv, detj, h, params,
+                       aux):
+        """Per-cell stabilisation residual from explicit per-cell batches:
+        (rv_loc (nc, nl, d), rq_loc (nc, nlq) or None), not advect-scaled.
+        The basis index l is contracted first, so the (nc, nq, nl, d, d)
+        physical-hessian batch never materialises."""
+        tv = self.form.tab_v
+        href, gq_ref = self.href, self.gq_ref
+        nu, advect = params["nu"], params["advect"]
+        u_q = torch.einsum("ql,cld->cqd", tv.phi, u_loc)
+        gu = torch.einsum("qle,cej,cli->cqij", tv.gphi, jinv, u_loc)
+        # Hu[c,q,i,a,b] = sum_l H_phys[c,q,l,a,b] u_loc[c,l,i]
+        Hu_ref = torch.einsum("qlde,cli->cqide", href, u_loc)
+        Hu = torch.einsum("cqide,cda,ceb->cqiab", Hu_ref, jinv, jinv)
+        # div(2 sym grad u)_i = lap u_i + d_i div u
+        visc = (torch.einsum("cqiaa->cqi", Hu)
+                + torch.einsum("cqaia->cqi", Hu))
+        gp = torch.einsum("qle,cej,cl->cqj", gq_ref, jinv, p_loc)
+        Lu = -nu * visc + advect * torch.einsum(
+            "cqij,cqj->cqi", gu, u_q) + gp
+        wdet = tv.w[None, :] * detj[:, None]
+        beta = self._beta_batch(u_q, h, wdet, params, aux)
+        coef = self.weight * wdet * beta  # (nc, nq)
+        gtest = torch.einsum("qle,cej->cqlj", tv.gphi, jinv)
+        # SUPG test direction (grad v) w with w the LIVE state
+        adv_test = torch.einsum("cqlj,cqj->cql", gtest, u_q)
+        rv_loc = torch.einsum("cq,cqi,cql->cli", coef, Lu, adv_test)
+        rq_loc = None
+        if self.mode == "gls":
+            # GLS's Lv advects the test function with the FROZEN wind
+            w_q = torch.einsum("ql,cld->cqd", tv.phi, w_loc)
+            adv_test = torch.einsum("cqlj,cqj->cql", gtest, w_q)
+            # Lv for v = phi_l e_i:
+            #   (div 2 sym grad v)_j = delta_ij lap phi_l + d_i d_j phi_l
+            #   ((grad v) w)_j       = delta_ij (grad phi_l . w)
+            # so inner(Lu, Lv) for test (l, i) =
+            #   Lu_i (-nu lap phi_l + grad phi_l . w)
+            #   + sum_j Lu_j (-nu H[l, i, j])
+            K = torch.einsum("cda,cea->cde", jinv, jinv)
+            lap = torch.einsum("qlde,cde->cql", href, K)
+            cLu = torch.einsum("cq,cqj,cej->cqe", coef, Lu, jinv)
+            hess_term = torch.einsum("qlde,cqe,cdi->cli", href, cLu, jinv)
+            rv_loc = torch.einsum("cq,cqi,cql->cli", coef, Lu,
+                                  -nu * lap + adv_test) \
+                + (-nu) * hess_term
+            # pressure rows: inner(Lu, grad q)
+            rq_loc = torch.einsum("cq,cqj,qle,cej->cl", coef, Lu,
+                                  gq_ref, jinv)
+        return rv_loc, rq_loc
+
+    def residual(self, z, params):
+        """Assembled (Rv, Rq), not advect-scaled."""
+        form = self.form
+        geom = form.geom
+        u, p = z
+        u_loc = u[form.cd_v]
+        w_loc = (params["wind"][form.cd_v] if self.mode == "gls"
+                 else torch.zeros_like(u_loc))
+        rv_loc, rq_loc = self.residual_local(
+            u_loc, p[form.cd_q], w_loc, geom.jinv, geom.detj, self.h,
+            params, self.aux_global(params))
+        Rv = form._sum_v(rv_loc, u)
+        Rq = (form._sum_q(rq_loc, p) if rq_loc is not None
+              else torch.zeros_like(p))
+        return Rv, Rq
+
+    # ------------------------------------------------------------------
+    # velocity-block element Jacobians (for the MG preconditioner)
+    # ------------------------------------------------------------------
+    def _beta_cell(self, u_q, hc, params, aux):
+        """Per-cell stabilisation coefficient, (nq,) from u_q (nq, d)."""
+        nu = params["nu"]
+        h2 = hc ** 2
+        w2 = torch.einsum("qd,qd->q", u_q, u_q)
+        return (4.0 * w2 / h2
+                + self.magic * (4.0 * nu / h2) ** 2) ** (-0.5)
+
+    def velocity_element_tensors(self, z, params):
+        """(nc, nl*d, nl*d) per-cell velocity-block Jacobian of the
+        stabilisation residual at state z, not advect-scaled (the caller
+        multiplies by ``advect``, as the residual hook does).
+
+        The reference assembles its PCMG/PCPatch operators from the full
+        stabilised Jacobian (alfi/solver.py:204-237), so the level
+        operators and patch matrices carry these terms; without them the
+        preconditioner drifts from the true Jacobian as Re grows."""
+        form = self.form
+        u, p = z
+        u_loc = u[form.cd_v]
+        wind_loc = (params["wind"][form.cd_v] if self.mode == "gls"
+                    else torch.zeros_like(u_loc))
+        geom = form.geom
+        return self.velocity_element_tensors_from(
+            params, u_loc, p[form.cd_q], wind_loc, geom.jinv, geom.detj,
+            self.h, self.aux_global(params))
+
+    def velocity_element_tensors_from(self, params, u_loc, p_loc,
+                                      wind_loc, jinv, detj, h, aux):
+        """The same per-cell Jacobians from explicit per-cell batches.
+        SUPG with the Shakib coefficient (the production path) uses the
+        hand-derived product rule of :meth:`_vet_supg_analytic`; GLS and
+        Turek use jacfwd of a per-cell residual."""
+        if self.mode == "supg" and type(self) is ShakibSUPG:
+            return self._vet_supg_analytic(params, u_loc, p_loc, jinv,
+                                           detj, h)
+        return self._vet_jacfwd(params, u_loc, p_loc, wind_loc, jinv,
+                                detj, h, aux)
+
+    def _vet_supg_analytic(self, params, u_loc, p_loc, jinv, detj, h,
+                           chunk=None):
+        """Analytic per-cell SUPG velocity-block Jacobian.
+
+        rv[l,i] = sum_q coef(q) Lu[q,i] at[q,l] with
+          coef = weight * w_q * detj * beta(u),
+          Lu   = -nu*(lap u + grad div u) + advect*(grad u) u + grad p,
+          at   = (grad phi_l) . u_q.
+        The product rule in ul[m,n] gives five terms (A: dcoef, B1/B3:
+        delta_in viscous and advective parts, B2: basis-hessian part, B4:
+        dgu part, C: dat part), each a q-contraction of small per-cell
+        factors.  Cells run in chunks of ``chunk`` (default: about 24 MB
+        of (chunk, nq, nl, d) working set, at most 2048 cells) to bound
+        the peak intermediates."""
+        form = self.form
+        tv = form.tab_v
+        if chunk is None:
+            per = tv.nq * tv.nloc * form.dim * 8
+            chunk = min(2048, max(256, (24 << 20) // per))
+        nu, advect = params["nu"], params["advect"]
+        phi, gphi, wq = tv.phi, tv.gphi, tv.w
+        href, gq_ref = self.href, self.gq_ref
+        weight, magic = self.weight, self.magic
+        nc, nl = u_loc.shape[0], u_loc.shape[1]
+        d = form.dim
+        eye = torch.eye(d, dtype=u_loc.dtype, device=u_loc.device)
+
+        def chunk_J(ul, pl, ji, dj, hc):
+            u_q = torch.einsum("ql,cld->cqd", phi, ul)
+            g = torch.einsum("qle,cej->cqlj", gphi, ji)
+            at = torch.einsum("cqlj,cqj->cql", g, u_q)
+            gu = torch.einsum("cqlj,cli->cqij", g, ul)
+            K = torch.einsum("cda,cea->cde", ji, ji)
+            lap = torch.einsum("qlde,cde->cql", href, K)
+            lap_u = torch.einsum("cql,cli->cqi", lap, ul)
+            v_le = torch.einsum("cea,cla->cle", ji, ul)
+            t_qd = torch.einsum("qlde,cle->cqd", href, v_le)
+            gdiv_u = torch.einsum("cqd,cdi->cqi", t_qd, ji)
+            visc = lap_u + gdiv_u
+            gp = torch.einsum("qle,cej,cl->cqj", gq_ref, ji, pl)
+            Lu = (-nu * visc
+                  + advect * torch.einsum("cqij,cqj->cqi", gu, u_q) + gp)
+            wdet = wq[None, :] * dj[:, None]
+            h2 = (hc ** 2)[:, None]
+            w2 = torch.einsum("cqd,cqd->cq", u_q, u_q)
+            beta = (4.0 * w2 / h2
+                    + magic * (4.0 * nu / h2) ** 2) ** (-0.5)
+            coef = weight * wdet * beta  # (c, q)
+            # dcoef[q,(m,n)] = s[q] u_q[q,n] phi[q,m],
+            # s = -4 coef beta^2 / h^2   (d beta = -4 beta^3 u_n/h^2)
+            s = -4.0 * coef * beta ** 2 / h2
+
+            # A: dcoef term
+            T = torch.einsum("cq,cqi,cql->cqil", s, Lu, at)
+            S = torch.einsum("cqn,qm->cqnm", u_q, phi)
+            J = torch.einsum("cqil,cqnm->climn", T, S)
+            # B1+B3: delta_in (viscous-laplacian + advective) parts
+            W = coef[:, :, None] * (-nu * lap + advect * at)
+            D = torch.einsum("cqm,cql->clm", W, at)
+            J = J + D[:, :, None, :, None] * eye[None, None, :, None, :]
+            # B2: basis-hessian part -nu sum_q coef H_phys[q,m,i,n] at[q,l]
+            Wc = coef[:, :, None] * at  # (c, q, l)
+            X = torch.einsum("qmde,cql->cmdel", href, Wc)
+            J = J + (-nu) * torch.einsum("cmdel,cdi,cen->climn",
+                                         X, ji, ji)
+            # B4: dgu part  advect sum_q coef gu[q,i,n] at[q,l] phi[q,m]
+            G = advect * coef[:, :, None, None] * gu  # (c, q, i, n)
+            T4 = torch.einsum("cqin,cql->cqinl", G, at)
+            J = J + torch.einsum("cqinl,qm->climn", T4, phi)
+            # C: dat part  sum_q coef Lu[q,i] g[q,l,n] phi[q,m]
+            T5 = torch.einsum("cq,cqi,cqln->cqiln", coef, Lu, g)
+            J = J + torch.einsum("cqiln,qm->climn", T5, phi)
+            return J  # (c, l, i, m, n)
+
+        J = torch.cat([
+            chunk_J(u_loc[c:c + chunk], p_loc[c:c + chunk],
+                    jinv[c:c + chunk], detj[c:c + chunk], h[c:c + chunk])
+            for c in range(0, nc, chunk)])
+        return J.reshape(nc, nl * d, nl * d)
+
+    def _vet_jacfwd(self, params, u_loc, p_loc, wind_loc, jinv, detj, h,
+                    aux):
+        """Per-cell Jacobians by torch.func.jacfwd (GLS and Turek)."""
+        tv = self.form.tab_v
+        nu, advect = params["nu"], params["advect"]
+        phi, gphi, wq = tv.phi, tv.gphi, tv.w
+        href, gq_ref = self.href, self.gq_ref
+        gls = self.mode == "gls"
+
+        def cell_rv(ul, pl, wl, ji, dj, hc):
+            u_q = torch.einsum("ql,ld->qd", phi, ul)
+            g = torch.einsum("qle,ej->qlj", gphi, ji)
+            gu = torch.einsum("qlj,li->qij", g, ul)
+            # div(2 sym grad u)_i = lap u_i + d_i(div u) from the
+            # reference hessian tabulation
+            K = torch.einsum("da,ea->de", ji, ji)
+            lap = torch.einsum("qlde,de->ql", href, K)
+            lap_u = torch.einsum("ql,li->qi", lap, ul)
+            v_le = torch.einsum("ea,la->le", ji, ul)
+            t_qd = torch.einsum("qlde,le->qd", href, v_le)
+            graddiv_u = torch.einsum("qd,di->qi", t_qd, ji)
+            visc = lap_u + graddiv_u
+            gp = torch.einsum("qle,ej,l->qj", gq_ref, ji, pl)
+            Lu = (-nu * visc
+                  + advect * torch.einsum("qij,qj->qi", gu, u_q) + gp)
+            beta = self._beta_cell(u_q, hc, params, aux)
+            coef = self.weight * (wq * dj) * beta  # (nq,)
+            if gls:
+                w_q = torch.einsum("ql,ld->qd", phi, wl)
+                adv_w = torch.einsum("qlj,qj->ql", g, w_q)
+                cLu = torch.einsum("q,qj,ej->qe", coef, Lu, ji)
+                A_ld = torch.einsum("qlde,qe->ld", href, cLu)
+                hess_term = torch.einsum("ld,di->li", A_ld, ji)
+                return (torch.einsum("q,qi,ql->li", coef, Lu,
+                                     -nu * lap + adv_w)
+                        + (-nu) * hess_term)
+            adv_test = torch.einsum("qlj,qj->ql", g, u_q)
+            return torch.einsum("q,qi,ql->li", coef, Lu, adv_test)
+
+        J = torch.func.vmap(torch.func.jacfwd(cell_rv, argnums=0))(
+            u_loc, p_loc, wind_loc, jinv, detj, h)
+        nc, nl, d = J.shape[0], J.shape[1], J.shape[2]
+        return J.reshape(nc, nl * d, nl * d)
+
+
+class TurekSUPG(ShakibSUPG):
+    """Turek's SUPG coefficient (alfi/stabilisation.py:100-136):
+    Re_tau = cell_avg(|u|) h Re;  beta = magic h 2 Re_tau / (w_avg (1+Re_tau))
+    with w_avg = (1/|Omega|) int |wind| dx over the FROZEN wind."""
+
+    def __init__(self, form, mode, char_LU=1.0, magic=1.0, weight=None):
+        super().__init__(form, mode, magic=magic, weight=weight)
+        self.char_LU = char_LU
+        self._wdet = form.tab_v.w[None, :] * form.geom.detj[:, None]
+        self._domain_measure = float(form.area())
+
+    def aux_global(self, params):
+        """Global scalar w_avg from the frozen wind (not differentiated)."""
+        form = self.form
+        w_qq = torch.einsum("ql,cld->cqd", form.tab_v.phi,
+                            params["wind"][form.cd_v])
+        return torch.einsum(
+            "cq,cq->", self._wdet,
+            torch.sqrt(torch.einsum("cqd,cqd->cq", w_qq, w_qq))
+        ) / self._domain_measure
+
+    def _beta_batch(self, u_q, h, wdet, params, aux):
+        Re = self.char_LU / params["nu"]
+        # cell average of |u| (live state); aux = frozen-wind w_avg
+        unorm = torch.sqrt(torch.einsum("cqd,cqd->cq", u_q, u_q))
+        cellavg = (torch.einsum("cq,cq->c", wdet, unorm)
+                   / (wdet.sum(dim=1) + 1e-300))
+        re_tau = cellavg * h * Re
+        beta = self.magic * h * 2.0 * re_tau / (aux * (1.0 + re_tau)
+                                                + 1e-300)
+        return beta[:, None] * torch.ones_like(unorm)
+
+    def _beta_cell(self, u_q, hc, params, aux):
+        Re = self.char_LU / params["nu"]
+        w = self.form.tab_v.w
+        unorm = torch.sqrt(torch.einsum("qd,qd->q", u_q, u_q))
+        # detj cancels between numerator and denominator (affine cells)
+        cellavg = torch.einsum("q,q->", w, unorm) / w.sum()
+        re_tau = cellavg * hc * Re
+        beta = (self.magic * hc * 2.0 * re_tau
+                / (aux * (1.0 + re_tau) + 1e-300))
+        return beta * torch.ones_like(unorm)
+
+
+class StabilisationWrapper:
+    """Adapts a stabilisation to the NSForm hook and the solver's
+    lifecycle."""
+
+    def __init__(self, impl):
+        self.impl = impl
+
+    def residual_hook(self, z, params):
+        advect = params["advect"]
+        Rv, Rq = self.impl.residual(z, params)
+        return advect * Rv, advect * Rq
+
+    def velocity_tensors_hook(self, z, params):
+        """Un-advect-scaled per-cell Jacobian contribution (see
+        ShakibSUPG.velocity_element_tensors)."""
+        return self.impl.velocity_element_tensors(z, params)
+
+    def update(self, wind):
+        # the frozen wind travels through params["wind"]; nothing cached
+        pass
+
+
+def make_stabilisation(form, kind, supg_method, supg_magic, weight,
+                       char_LU=1.0):
+    if kind in ("supg", "gls"):
+        if supg_method == "shakib":
+            impl = ShakibSUPG(form, kind, magic=supg_magic, weight=weight)
+        elif supg_method == "turek":
+            impl = TurekSUPG(form, kind, char_LU=char_LU,
+                             magic=supg_magic, weight=weight)
+        else:
+            raise NotImplementedError(f"supg_method {supg_method!r}")
+    elif kind == "burman":
+        raise NotImplementedError(
+            "Burman stabilisation (Scott-Vogelius) is not ported yet: "
+            "ROADMAP.md Queue 1 item 9")
+    else:
+        raise ValueError(kind)
+    return StabilisationWrapper(impl)

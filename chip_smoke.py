@@ -20,7 +20,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    L2 cold, and its bound;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
-   Re 1/10/100;
+   Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
 5. the bench config (ldc2d [P2]^2-P0 almg, baseN=16, nref=2, 41,474
    dofs, the configuration of ``bench.py``): warm up with Re=1, reset the
    state, time Re 1 -> 10 -> 100; every Re must converge, with 22 Krylov
@@ -30,6 +30,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    time by name);
 6. the same problem at nref=3 (164,866 dofs) for Re 1 -> 10 must
    converge;
+7. the papers' headline protocol through the port's own driver
+   (get_default_parser / get_solver / run_solver, as examples/iters.py
+   runs it): the bench config with SUPG (shakib), --restriction and
+   --checkpoint in a temporary directory, over Re 1, 10, 100, 200, ...,
+   1000.  Every Re must converge to a finite state; Re 1, 10, 100 must
+   take the JAX package's counts exactly, and Re 200-1000 its Newton
+   count and at most its Krylov count plus one per Newton step; the
+   fused kernel must have been launched for K1 and K2.  One Newton
+   linear step of the Re=1000 solve is traced as in phase 5.  A second
+   solver over the same ladder must load all 12 checkpoints, solve
+   nothing and reproduce every count;
 
 then print the kernel table as one JSON line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -46,7 +57,20 @@ import warnings
 
 BENCH_RES = [1, 10, 100]
 SMALL_COUNTS = [(8, 2), (7, 2), (15, 3)]  # JAX package, CPU f64
+SMALL_SUPG_COUNTS = [(7, 2), (7, 2), (16, 3)]  # the same, SUPG, restriction
 BENCH_COUNTS = (22, 7)  # JAX package's record at the bench config
+#: the headline protocol at the bench config: Re -> (Krylov, Newton) of
+#: the JAX package (CPU f64; the first 10 Re agree with
+#: results/iters_ldc2d_nref2_re10000.log)
+HEADLINE_ARGV = ["--discretisation", "pkp0", "--mh", "uniform", "--baseN",
+                 "16", "--nref", "2", "--k", "2", "--gamma", "1e4",
+                 "--stabilisation-type", "supg", "--restriction",
+                 "--checkpoint"]
+HEADLINE_JAX = {1: (6, 2), 10: (5, 2), 100: (10, 3), 200: (13, 3),
+                300: (15, 3), 400: (14, 3), 500: (14, 3), 600: (15, 3),
+                700: (15, 3), 800: (16, 3), 900: (15, 3), 1000: (15, 3)}
+#: Re at which the counts must equal the JAX package's exactly
+HEADLINE_EXACT = (1, 10, 100)
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -230,6 +254,141 @@ def _check_kernel(name, op, rng, flush, mask=None):
     return out
 
 
+def _profile_linear_step(solver):
+    """Trace the first Newton linear step of the solver's last solve
+    (from the state before it) under torch.profiler; print its kernel
+    count, device busy share and kernel time by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alfi_torch import kernels
+
+    params = solver.params()
+    z = solver.z_last
+    F = solver.residual_masked(z, params)
+    tstate = solver._transfer_setup(params)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, its = solver._linear_step(z, F, params, tstate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = _device_kernels(prof)
+    busy = sum(us for _, us in kern) / 1e6
+    print("profiled linear step: %d Krylov its, %.3f s wall (profiler on), "
+          "%d kernels (%.0f per Krylov it), device busy %.3f s = %.1f%% of "
+          "wall; fused kernel launches %s"
+          % (its, wall, len(kern), len(kern) / max(its, 1), busy,
+             100.0 * busy / wall, dict(kernels.GatherGemvScatter.launches)),
+          flush=True)
+    by_name = {}
+    for kname, us in kern:
+        n_us = by_name.setdefault(kname[:70], [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += us
+    for kname, (cnt, us) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:10]:
+        print("  %8.2f ms %6d x  %s" % (us / 1e3, cnt, kname))
+
+
+def _headline_sweep(dev):
+    """Phase 7: the headline SUPG protocol through the port's driver, in a
+    temporary working directory; returns the fused kernel's launches per
+    use over the sweep."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alfi_torch import (
+        get_default_parser,
+        get_solver,
+        kernels,
+        run_solver,
+    )
+    from alfi_torch.problems import TwoDimLidDrivenCavityProblem
+
+    res = list(HEADLINE_JAX)
+    args = get_default_parser().parse_args(HEADLINE_ARGV)
+    problem = TwoDimLidDrivenCavityProblem(args.baseN)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            solver = get_solver(args, problem, device=dev)
+            solver.verbose = False
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = run_solver(solver, res, args)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = dict(kernels.GatherGemvScatter.launches)
+            chkdir = os.path.join("checkpoint", str(solver.Z.dim))
+            for re in res:
+                with np.load(os.path.join(
+                        chkdir, "nssolution-Re-%s.npz" % re)) as chk:
+                    finite = bool(np.isfinite(chk["u"]).all()
+                                  and np.isfinite(chk["p"]).all())
+                if not (results[re]["converged"] and finite):
+                    raise AssertionError("headline Re=%s did not converge "
+                                         "(finite=%s)" % (re, finite))
+            counts = {re: (results[re]["linear_iter"],
+                           results[re]["nonlinear_iter"]) for re in res}
+            print("headline protocol: %d dofs, SUPG shakib, restriction, "
+                  "Re %s -> %s (%d steps) in %.3f s"
+                  % (solver.Z.dim, res[0], res[-1], len(res), total),
+                  flush=True)
+            print("headline seconds per Re: %s" % ", ".join(
+                "%s: %.3f" % (re, 60.0 * results[re]["time"]) for re in res))
+            print("headline Krylov/Newton per Re (JAX package): %s"
+                  % ", ".join("%s: %d/%d (%d/%d)" % ((re,) + counts[re]
+                                                     + HEADLINE_JAX[re])
+                              for re in res))
+            print("headline kpn per Re: %s" % ", ".join(
+                "%s: %.2f" % (re, counts[re][0] / counts[re][1])
+                for re in res))
+            print("headline fused kernel launches per use: %s" % launches,
+                  flush=True)
+            for re in res:
+                (k, n), (kj, nj) = counts[re], HEADLINE_JAX[re]
+                ok = ((k, n) == (kj, nj) if re in HEADLINE_EXACT
+                      else n == nj and k <= kj + nj)
+                if not ok:
+                    raise AssertionError(
+                        "headline Re=%s: Krylov/Newton %d/%d against the "
+                        "JAX package's %d/%d" % (re, k, n, kj, nj))
+            for use in ("K1", "K2"):
+                if launches[use] <= 0:
+                    raise AssertionError("the fused kernel was not launched "
+                                         "for %s on the headline path" % use)
+            _profile_linear_step(solver)
+
+            # resume: a second solver loads every checkpoint, solves nothing
+            again = get_solver(args, problem, device=dev)
+
+            def no_solve(re):
+                raise AssertionError("resumed sweep solved Re=%s" % re)
+
+            again.solve = no_solve
+            resumed = run_solver(again, res, args)
+            if not all(resumed[re].get("checkpointed") for re in res):
+                raise AssertionError("resumed sweep did not load every "
+                                     "checkpoint")
+            rcounts = {re: (resumed[re]["linear_iter"],
+                            resumed[re]["nonlinear_iter"]) for re in res}
+            if rcounts != counts:
+                raise AssertionError("resumed counts %s != %s"
+                                     % (rcounts, counts))
+            print("headline resume: %d checkpoints loaded, nothing solved, "
+                  "counts reproduced" % len(res), flush=True)
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
 def _solve_sweep(solver, res):
     import torch
 
@@ -285,11 +444,11 @@ def main():
 
     # 3. the fused kernel vs its plain version on the main path's tables;
     # the solvers run on the card by default
-    def make(baseN, nref):
+    def make(baseN, nref, **kw):
         return ConstantPressureSolver(
             TwoDimLidDrivenCavityProblem(baseN), nref=nref, k=2,
             solver_type="almg", hierarchy="uniform", gamma=1e4,
-            verbose=False)
+            verbose=False, **kw)
 
     t0 = time.perf_counter()
     bench = make(16, 2)
@@ -329,6 +488,14 @@ def main():
                              % (counts, SMALL_COUNTS))
     print("small config (%d dofs) counts equal the JAX package's: %s"
           % (small.Z.dim, counts), flush=True)
+    small = make(4, 1, stabilisation_type="supg", restriction=True)
+    rows, _ = _solve_sweep(small, BENCH_RES)
+    counts = [(r[1], r[2]) for r in rows]
+    if counts != SMALL_SUPG_COUNTS:
+        raise AssertionError("small SUPG counts %s != JAX package %s"
+                             % (counts, SMALL_SUPG_COUNTS))
+    print("small config with SUPG and restriction: counts equal the JAX "
+          "package's: %s" % counts, flush=True)
 
     # 5. the bench config
     t0 = time.perf_counter()
@@ -355,36 +522,10 @@ def main():
 
     # where the time goes: one Newton linear step of the Re=100 solve
     # (from the Re=10 state) under torch.profiler
-    from torch.profiler import ProfilerActivity, profile
-
     params = bench.params()
     z = bench.z_last
     F = bench.residual_masked(z, params)
-    tstate = bench._transfer_setup(params)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, its = bench._linear_step(z, F, params, tstate)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = _device_kernels(prof)
-    busy = sum(us for _, us in kern) / 1e6
-    print("profiled linear step: %d Krylov its, %.3f s wall (profiler on), "
-          "%d kernels (%.0f per Krylov it), device busy %.3f s = %.1f%% of "
-          "wall; fused kernel launches %s"
-          % (its, wall, len(kern), len(kern) / max(its, 1), busy,
-             100.0 * busy / wall, dict(kernels.GatherGemvScatter.launches)),
-          flush=True)
-    by_name = {}
-    for kname, us in kern:
-        n_us = by_name.setdefault(kname[:70], [0, 0.0])
-        n_us[0] += 1
-        n_us[1] += us
-    for kname, (cnt, us) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][1])[:10]:
-        print("  %8.2f ms %6d x  %s" % (us / 1e3, cnt, kname))
+    _profile_linear_step(bench)
     # the Jacobian action is torch.func.jvp of the residual, which
     # evaluates the residual again on every call
     from alfi_torch.solvers.linear import make_jacobian_matvec
@@ -399,6 +540,10 @@ def main():
     # 6. nref=3
     _, t_big = _solve_sweep(big, [1, 10])
     print("nref=3: Re 1->10 in %.3f s" % t_big, flush=True)
+    del big
+
+    # 7. the headline protocol through the driver (this slice's main path)
+    headline = _headline_sweep(dev)
 
     src = os.path.relpath(kernels.SOURCE,
                           os.path.dirname(os.path.abspath(__file__)))
@@ -409,7 +554,7 @@ def main():
         entries.append({
             "name": "gather_gemv_scatter (%s, %s, masked)" % (use, name),
             "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[use],
+            "launches": headline[use],
             "max_abs_err": max(t["abs_err"] for t in table
                                if t["name"].startswith(use)),
             "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],

@@ -169,11 +169,9 @@ def _reference(A, x, idx, n, in_mask=None, out_mask=None, p=None):
     return acc if out_mask is None else out_mask * acc + (1 - out_mask) * p
 
 
-def test_plain_gather_bgemv_reads_pads_as_zero():
-    """The gather half of the fused op's plain version (the name is that
-    of the two-kernel design's gather kernel, which the fused kernel
-    replaced; the test keeps it): an index entry outside [0, n) reads 0
-    and owns no output."""
+def test_plain_version_reads_pads_as_zero():
+    """The gather half of the fused op's plain version: an index entry
+    outside [0, n) reads 0 and owns no output."""
     rng = np.random.default_rng(0)
     nb, m, n = 7, 5, 20
     A = rng.standard_normal((nb, m, m))
@@ -191,10 +189,8 @@ def test_plain_gather_bgemv_reads_pads_as_zero():
     np.testing.assert_array_equal(out2.numpy(), out.numpy())
 
 
-def test_csr_segment_sum_is_the_scatter_adjoint():
-    """The scatter half of the fused op (the name is that of the
-    two-kernel design's CSR scatter kernel, which the fused kernel
-    replaced; the test keeps it) is the adjoint of its gather:
+def test_plain_version_scatter_is_the_gather_adjoint():
+    """The scatter half of the fused op is the adjoint of its gather:
     <y, op(A) x> = <op(A^T) y, x>; and the kernel's CSR lists run in
     ascending slot order within each dof."""
     rng = np.random.default_rng(1)
