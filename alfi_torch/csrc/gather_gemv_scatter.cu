@@ -35,9 +35,10 @@
 // x, pass and out add under 1.5 MB.  At 3.35 TB/s that is at most about
 // 2.3 and 3.2 us; chip_smoke.py counts each table's bytes exactly.
 //
-// What the design does about it: every A row is read once, in one pass,
-// with 16-byte loads, and nothing else goes through device memory: no
-// intermediate Y, no second launch, no atomics.  A group of G lanes
+// What the design does about it (the pair path, even m <= 64): every A
+// row is read once, in one pass, with 16-byte loads, and nothing else
+// goes through device memory: no intermediate Y, no second launch, no
+// atomics.  A group of G lanes
 // (G = the power of two >= m/2, at most 32; 8 for m = 12 and 14, 4 for
 // m = 6) owns one output dof; lane t of the group loads the pair of
 // columns j = 2t, 2t+1 of each owned A row as one double2 and the
@@ -56,8 +57,50 @@
 // 1/8 flop per byte; f64 DMMA would raise the flop rate of work whose
 // time is all in moving A.
 //
-// It takes an even m in [2, 64] (every 2D table of the main path) and a
-// 16-byte-aligned A; the wrapper raises on anything else.
+// Every block size.  The pair path above takes an even m in [2, 64] and a
+// 16-byte-aligned A: every 2D table of the main path (m = 6, 12, 14) and
+// the even 3D ones (the K2 tables, nld = 42 for [P2+FB]^3 and 24 for
+// [P1+FB]^3).  The 3D patch tables are odd or longer: star patches of
+// [P2+FB]^3 have m = 189, of [P1+FB]^3 m = 138, the Schoeberl patches
+// m = 27.  They take the strided path (gather_gemv_scatter_strided_kernel),
+// which has no upper limit on m:
+//
+//   * Row length.  A group of G lanes walks a row in steps of G columns,
+//     lane t taking columns t, t + G, t + 2G, ...; a lane loads four
+//     steps before it uses the first.  G is the power of two >= m/4, at
+//     most 32: a whole warp per output dof from m = 65 on (a row of 189
+//     doubles, 1,512 B, is six coalesced 256-byte steps), 8 lanes at
+//     m = 27, so that a short row is still one batch of loads and a warp
+//     carries four dofs.  A dof of a Schoeberl table owns one row, and
+//     with a warp per dof the launch was a chain of dependent loads per
+//     wave of blocks: 57 us at 3,072 x 27 against 23 us for the plain
+//     version (NVIDIA H100 80GB HBM3, 700 W).
+//   * Odd m and alignment.  A stays dense, (nb, m, m) with no pad, and is
+//     read as 8-byte scalars: a row starts 16-byte aligned only when m is
+//     even, and an f64 load per lane still coalesces to full 32-byte
+//     sectors (a step that straddles a sector shares it with the next
+//     step, which finds it in L1/L2).  A padded leading dimension would
+//     buy 16-byte loads at the price of a second layout for the patch
+//     inverses and 1-4 % more bytes, in a kernel whose time is bytes.
+//   * Bytes at scale.  At the 3D scale row (ldc3d baseN=4 nref=2, n =
+//     259,875 velocity dofs) the fine star table is 4,913 x 189 x 189 x 8 B
+//     = 1.40 GB and the fine K2 table 24,576 x 42 x 42 x 8 B = 0.35 GB:
+//     neither stays in the 50 MB L2, and every row is read exactly once.
+//     A dof has at most 3 slots in a star table and up to 30 in the K2
+//     table.  Four steps of a row (1 KB per warp) are loaded before the
+//     first is used, and the SM holds 64 such warps, about 64 KB in
+//     flight against the 15-20 KB that cover HBM latency at the SM's
+//     share of 3.35 TB/s.  The gather row and x come from L2 (the index
+//     table is 3.7 MB, x 2.1 MB); the three components of a node are
+//     neighbours in k and share their patches, so the warps of a block
+//     find each other's gather rows and x in L1.
+//   * Summation order on the strided path: lane t keeps one f64 partial,
+//     updated with fma over its columns t, t + G, ... in ascending order,
+//     slots in CSR list order, then the same xor butterfly.
+//
+// path = 0 picks by m (pair where it applies: it is the faster of the two
+// at the 2D shapes and keeps their times); 1 and 2 force a path, for
+// measurements.
 
 #include <cuda_runtime.h>
 
@@ -124,36 +167,98 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
   if (own && j == 0) out[k] = keep ? p : pass[k];
 }
 
+// The strided path: any m >= 1.  Lane t of a group of G = 2^glog lanes
+// takes columns t, t + G, ... of each row of its dof, as 8-byte loads.
+constexpr int kSteps = 4;  // steps of a row loaded before the first is used
+
+__global__ void __launch_bounds__(kThreads)
+gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
+                                   const double* __restrict__ x,
+                                   const int* __restrict__ gidx,
+                                   const int* __restrict__ offsets,
+                                   const int* __restrict__ slots,
+                                   const unsigned char* __restrict__ out_mask,
+                                   const double* __restrict__ pass,
+                                   double* __restrict__ out, int n, int m,
+                                   int glog) {
+  const int G = 1 << glog;
+  const long long k =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) >> glog;
+  const int t = threadIdx.x & (G - 1);
+  const bool own = k < n;
+  const bool keep = !own || out_mask == nullptr || out_mask[k] != 0;
+  const int qbeg = own ? offsets[k] : 0;
+  const int qend = own ? offsets[k + 1] : 0;
+  double p = 0.0;
+  for (int q = qbeg; q < qend; ++q) {
+    const int s = slots[q];
+    const double* __restrict__ row = A + (long long)s * m;
+    const int* __restrict__ grow = gidx + (long long)(s / m) * m;
+    for (int j0 = t; j0 < m; j0 += kSteps * G) {
+      double a[kSteps];
+      int g[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int j = j0 + u * G;
+        const bool in = j < m;
+        a[u] = in ? row[j] : 0.0;
+        g[u] = in ? grow[j] : -1;
+      }
+      double xv[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : 0.0;
+      // ascending columns; a step past the row's end adds 0 * 0
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) p = fma(a[u], xv[u], p);
+    }
+  }
+  // every lane of the warp reaches this point, as in the pair kernel
+  for (int o = G >> 1; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+  if (own && t == 0) out[k] = keep ? p : pass[k];
+}
+
 }  // namespace
 
 extern "C" {
 
 // out (n,) = the fused, masked gather-GEMV-scatter above, launched on
-// `stream` of CUDA device `device`.  m even in [2, 64], A 16-byte and
-// gidx 8-byte aligned; out_mask and pass both null or both set.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments it does not take).
+// `stream` of CUDA device `device`.  Any m >= 1; path 0 picks the kernel
+// by m, 1 forces the pair kernel (m even in [2, 64], A 16-byte and gidx
+// 8-byte aligned), 2 the strided one.  out_mask and pass both null or both
+// set.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for arguments it does not take).
 int alfi_gather_gemv_scatter(const double* A, const double* x,
                              const int* gidx, const int* offsets,
                              const int* slots,
                              const unsigned char* out_mask,
                              const double* pass, double* out, int n, int m,
-                             int device, void* stream) {
-  if (n < 0 || m < 2 || m > kMaxM || m % 2 != 0 ||
-      (out_mask == nullptr) != (pass == nullptr) ||
-      reinterpret_cast<unsigned long long>(A) % 16 != 0 ||
-      reinterpret_cast<unsigned long long>(gidx) % 8 != 0)
+                             int path, int device, void* stream) {
+  if (n < 0 || m < 1 || path < 0 || path > 2 ||
+      (out_mask == nullptr) != (pass == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool pair_ok = m <= kMaxM && m % 2 == 0 &&
+                       reinterpret_cast<unsigned long long>(A) % 16 == 0 &&
+                       reinterpret_cast<unsigned long long>(gidx) % 8 == 0;
+  if (path == 1 && !pair_ok) return (int)cudaErrorInvalidValue;
+  const bool pair = path == 1 || (path == 0 && pair_ok);
   if (n == 0) return (int)cudaSuccess;
+  // lanes per dof: one per column pair (pair), or as many as load the
+  // row in one batch of kSteps steps (strided)
+  const int width = pair ? m / 2 : (m + kSteps - 1) / kSteps;
   int glog = 0;
-  while ((1 << glog) < m / 2) ++glog;
+  while (glog < 5 && (1 << glog) < width) ++glog;
   int prev = -1;
   cudaGetDevice(&prev);
   if (prev != device) cudaSetDevice(device);
   const long long threads = (long long)n << glog;
   const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
-  gather_gemv_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
+  if (pair)
+    gather_gemv_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
+  else
+    gather_gemv_scatter_strided_kernel<<<grid, kThreads, 0,
+                                         (cudaStream_t)stream>>>(
+        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
   const int err = (int)cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return err;

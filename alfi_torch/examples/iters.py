@@ -9,6 +9,8 @@ Usage (the papers' protocol, on the card):
       --mh uniform --stabilisation-type supg --restriction \\
       --nref-start 1 --nref-end 2 --re-max 10000 [--checkpoint]
 
+``--problem`` is one of ldc2d, ldc3d, bfs2d, bfs3d (the steps read a
+gmsh file given by ``--mesh``, or generate their mesh without one).
 ``--device`` (default ``cuda``) picks the torch device; ``--device cpu``
 runs the same protocol on the host.
 """
@@ -16,13 +18,20 @@ runs the same protocol on the host.
 import math
 
 from alfi_torch import get_default_parser, get_solver, run_solver
-from alfi_torch.problems import TwoDimLidDrivenCavityProblem
+from alfi_torch.problems import (
+    ThreeDimBackwardsFacingStepProblem,
+    ThreeDimLidDrivenCavityProblem,
+    TwoDimBackwardsFacingStepProblem,
+    TwoDimLidDrivenCavityProblem,
+)
 
 
-def reynolds_ladder(re_max):
-    """[1, 10, 100, 200, 300, ..., 10000] up to ``re_max``."""
+def reynolds_ladder(re_max, bfs=False):
+    """[1, 10, 100, 200, 300, ..., 10000] up to ``re_max``; the
+    backwards-facing steps add Re 50, 150, 250, 350."""
     res = [1, 10, 100] + list(range(200, 10000 + 100, 100))
-    return [r for r in res if r <= re_max]
+    res = [r for r in res if r <= re_max]
+    return sorted(res + [50, 150, 250, 350]) if bfs else res
 
 
 def sci_latex(n):
@@ -47,14 +56,21 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args, _ = parser.parse_known_args(argv)
 
-    if args.problem != "ldc2d":
+    if args.problem == "ldc2d":
+        problem = TwoDimLidDrivenCavityProblem(
+            args.baseN, args.diagonal, regularised=not args.singular)
+    elif args.problem == "bfs2d":
+        problem = TwoDimBackwardsFacingStepProblem(args.mesh)
+    elif args.problem == "ldc3d":
+        problem = ThreeDimLidDrivenCavityProblem(args.baseN)
+    elif args.problem == "bfs3d":
+        problem = ThreeDimBackwardsFacingStepProblem(args.mesh)
+    else:
         raise NotImplementedError(
-            "--problem %s is not ported yet: ROADMAP.md Queue 1 item %d"
-            % (args.problem, 8 if args.problem.endswith("3d") else 10))
-    problem = TwoDimLidDrivenCavityProblem(
-        args.baseN, args.diagonal, regularised=not args.singular)
+            "--problem %s is not ported yet: ROADMAP.md Queue 1 item 10"
+            % args.problem)
 
-    res = reynolds_ladder(args.re_max)
+    res = reynolds_ladder(args.re_max, bfs=args.problem.startswith("bfs"))
     results, dofs = {}, {}
     nrefs = range(args.nref_start, args.nref_end + 1)
     tableres = [i for i in [10, 100, 1000, 5000, 10000] if i <= max(res)]

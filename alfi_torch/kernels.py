@@ -32,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 
 import numpy as np
 import torch
@@ -91,7 +92,7 @@ def load_library():
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.alfi_gather_gemv_scatter.restype = ci
-    lib.alfi_gather_gemv_scatter.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.alfi_gather_gemv_scatter.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     _lib = lib
     return lib
 
@@ -132,11 +133,14 @@ class GatherGemvScatter:
     ``in_mask`` / ``out_mask``: optional 0/1 masks of n values, fixed
     here.  With an out_mask every call passes ``passthrough`` (n,).
     The device is the table's: A, x and passthrough must lie on it.  On
-    a CUDA device the kernel takes an even m <= 64 and a 16-byte-aligned
-    A (any fresh allocation)."""
+    a CUDA device the kernel takes any m >= 1 (``path`` 0: the pair
+    kernel for an even m <= 64 and a 16-byte-aligned A, else the strided
+    one; 1 or 2 force the pair or the strided kernel, for measurements)."""
 
     #: kernel launches per use since the last reset_launch_counts()
     launches = {"K1": 0, "K2": 0}
+    #: every live table, so that reset_launch_counts() reaches its count
+    _tables_alive = weakref.WeakSet()
 
     def __init__(self, idx, n, use, *, in_mask=None, out_mask=None,
                  device):
@@ -144,6 +148,8 @@ class GatherGemvScatter:
             raise ValueError("use must be one of %s" % sorted(self.launches))
         idx = np.asarray(idx, dtype=np.int64)
         nb, m = idx.shape
+        if m < 1:
+            raise ValueError("the table needs m >= 1 columns, got m=%d" % m)
         n = int(n)
         if n >= 2 ** 31:
             raise ValueError("vector too long for int32 tables")
@@ -172,11 +178,14 @@ class GatherGemvScatter:
         #: the masks as one 0/1 byte (bool) per dof
         self.in_keep = None if in_keep is None else dev(in_keep)
         self.out_keep = None if out_keep is None else dev(out_keep)
+        #: this table's kernel launches since the last
+        #: reset_launch_counts()
+        self.launched = 0
+        GatherGemvScatter._tables_alive.add(self)
         self._launch = None
+        #: kernel choice on a CUDA device (see the class docstring)
+        self.path = 0
         if self.device.type == "cuda":
-            if m % 2 or not 2 <= m <= 64:
-                raise ValueError("the CUDA kernel takes an even m in "
-                                 "[2, 64], got m=%d" % m)
             self._launch = load_library().alfi_gather_gemv_scatter
             self._tables = (self.gidx.data_ptr(), self.offsets.data_ptr(),
                             self.slots.data_ptr(),
@@ -204,19 +213,21 @@ class GatherGemvScatter:
         if self._launch is None:
             return self.plain(A, x, passthrough)
         a_ptr = A.data_ptr()
-        if a_ptr % 16:
-            raise ValueError("A must be 16-byte aligned")
+        if self.path == 1 and (a_ptr % 16 or self.m % 2 or self.m > 64):
+            raise ValueError("the pair kernel takes an even m <= 64 and a "
+                             "16-byte-aligned A, got m=%d" % self.m)
         out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
         gidx, offsets, slots, out_mask = self._tables
         err = self._launch(
             a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
             None if passthrough is None else passthrough.data_ptr(),
-            out.data_ptr(), self.n, self.m, self.device.index,
+            out.data_ptr(), self.n, self.m, self.path, self.device.index,
             torch._C._cuda_getCurrentRawStream(self.device.index))
         if err != 0:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
         GatherGemvScatter.launches[self.use] += 1
+        self.launched += 1
         return out
 
     def plain(self, A, x, passthrough=None):
@@ -235,5 +246,8 @@ class GatherGemvScatter:
 
 
 def reset_launch_counts():
+    """Zero the per-use counts and every live table's own count."""
     for key in GatherGemvScatter.launches:
         GatherGemvScatter.launches[key] = 0
+    for table in GatherGemvScatter._tables_alive:
+        table.launched = 0

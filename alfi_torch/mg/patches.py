@@ -231,6 +231,8 @@ class PatchSet:
         self.l2p = l2p.astype(index_dtype)
         #: vector size, for the d-row gather/scatter (_gather_scatter)
         self.space_d = d
+        #: device -> (cells, flat index) of contract_patch_tensors
+        self._contract_cache = {}
 
 
 def _merge_scalar_dofs(sdofs, sizes, extra):
@@ -254,6 +256,25 @@ def _merge_scalar_dofs(sdofs, sizes, extra):
 # ----------------------------------------------------------------------
 # device half
 # ----------------------------------------------------------------------
+def _contract_index(patchset, dev):
+    """(cells (np, mc), flat (np*mc*nld*nld,)) on ``dev``: the padded cell
+    table and, per (patch, cell slot, i, j), the flat position of
+    A_p[l2p[i], l2p[j]] in the (np, m+1, m+1) accumulator.  Static per
+    PatchSet, so built once per device and kept (at the 3D scale row the
+    fine star table's index is 2 GB; rebuilding it per Newton step and
+    level was the larger part of the contraction)."""
+    cache = patchset._contract_cache
+    if dev not in cache:
+        m1 = patchset.m + 1
+        cells = torch.as_tensor(patchset.cells, device=dev)  # pad = nc
+        l2p = torch.as_tensor(patchset.l2p, dtype=torch.int64, device=dev)
+        base = torch.arange(cells.shape[0],
+                            device=dev)[:, None, None, None] * (m1 * m1)
+        flat = base + l2p[:, :, :, None] * m1 + l2p[:, :, None, :]
+        cache[dev] = (cells, flat.reshape(-1))
+    return cache[dev]
+
+
 def contract_patch_tensors(patchset, tensors):
     """(np, m, m) patch operators summed from per-cell element tensors
     (NO padding diagonal — see assemble_patch_matrices):
@@ -261,15 +282,12 @@ def contract_patch_tensors(patchset, tensors):
     placement, as one scatter-add (the JAX package's CPU formulation)."""
     m = patchset.m
     m1 = m + 1
-    dev = tensors.device
-    cells = torch.as_tensor(patchset.cells, device=dev)  # pad = nc
-    l2p = torch.as_tensor(patchset.l2p, dtype=torch.int64, device=dev)
+    cells, flat = _contract_index(patchset, tensors.device)
     npat = cells.shape[0]
     Tpad = torch.cat([tensors, tensors.new_zeros((1,) + tensors.shape[1:])])
-    base = torch.arange(npat, device=dev)[:, None, None, None] * (m1 * m1)
-    flat = base + l2p[:, :, :, None] * m1 + l2p[:, :, None, :]
-    A = torch.zeros((npat * m1 * m1,), dtype=tensors.dtype, device=dev)
-    A = A.index_add(0, flat.reshape(-1), Tpad[cells].reshape(-1))
+    A = torch.zeros((npat * m1 * m1,), dtype=tensors.dtype,
+                    device=tensors.device)
+    A = A.index_add(0, flat, Tpad[cells].reshape(-1))
     return A.reshape(npat, m1, m1)[:, :m, :m]
 
 

@@ -41,6 +41,7 @@ from .patches import (
     patch_static_operators,
     star_patches,
 )
+from .bubble import BubbleTransfer
 from .schoeberl import SchoeberlTransfer
 from .transfer import injection, prolongation
 
@@ -107,10 +108,18 @@ class VelocityMG:
                                        device=self.device))
             spaces.append(V)
 
-        self.prolongs = [
-            prolongation(mh, l, spaces[l], spaces[l + 1], device=self.device)
-            for l in range(self.nlevels - 1)
-        ]
+        # P1FB in 3D needs the bubble flux fix as its "standard" transfer
+        # (alfi/transfer.py:334-356); everything else uses plain nodal
+        # point evaluation.
+        if d == 3 and elem.name == "P1FB" and mh.kind != "bary":
+            self.prolongs = [BubbleTransfer(mh, l, device=self.device)
+                             for l in range(self.nlevels - 1)]
+        else:
+            self.prolongs = [
+                prolongation(mh, l, spaces[l], spaces[l + 1],
+                             device=self.device)
+                for l in range(self.nlevels - 1)
+            ]
         self.injects = [
             injection(mh, l, spaces[l + 1], spaces[l], device=self.device)
             for l in range(self.nlevels - 1)

@@ -1,1 +1,8 @@
-from .ldc import TwoDimLidDrivenCavityProblem
+from .bfs import (
+    ThreeDimBackwardsFacingStepProblem,
+    TwoDimBackwardsFacingStepProblem,
+)
+from .ldc import (
+    ThreeDimLidDrivenCavityProblem,
+    TwoDimLidDrivenCavityProblem,
+)

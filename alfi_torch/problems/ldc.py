@@ -1,16 +1,16 @@
-"""Lid-driven cavity problem (2D; the 3D cavity is a later slice).
+"""Lid-driven cavity problems (2D / 3D).
 
-Behavioural parity with examples/ldc2d/ldc2d.py: [0,2]^2 cavity,
-regularised polynomial lid profile on the top boundary, no-slip
-elsewhere, enclosed flow (pressure nullspace), sweep direction "0+:1-"
-for multiplicative patch relaxation."""
+Behavioural parity with examples/ldc2d/ldc2d.py and ldc3d/ldc3d.py:
+[0,2]^d cavity, regularised polynomial lid profile on the top boundary,
+no-slip elsewhere, enclosed flow (pressure nullspace), sweep direction
+"0+:1-" for multiplicative patch relaxation."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..fem.dirichlet import DirichletBC
-from ..mesh import rectangle_mesh
+from ..mesh import box_mesh, rectangle_mesh
 from ..problem import NavierStokesProblem
 
 
@@ -38,6 +38,40 @@ class TwoDimLidDrivenCavityProblem(NavierStokesProblem):
         return [
             DirichletBC(Z.V, self.driver, 4),
             DirichletBC(Z.V, (0.0, 0.0), [1, 2, 3]),
+        ]
+
+    def has_nullspace(self):
+        return True
+
+    def char_length(self):
+        return 2.0
+
+    def relaxation_direction(self):
+        return "0+:1-"
+
+
+class ThreeDimLidDrivenCavityProblem(NavierStokesProblem):
+    """[0,2]^3 cavity, lid at y=2 (examples/ldc3d/ldc3d.py)."""
+
+    def __init__(self, baseN):
+        self.baseN = baseN
+
+    def mesh(self):
+        return box_mesh(self.baseN, self.baseN, self.baseN, 2, 2, 2)
+
+    def driver(self, x):
+        # lid at y = 2 (tag 4), regularised profile
+        # (examples/ldc3d/ldc3d.py:24-27)
+        xx, yy, zz = x[:, 0], x[:, 1], x[:, 2]
+        ux = (xx * xx * (2 - xx) * (2 - xx)
+              * zz * zz * (2 - zz) * (2 - zz) * 0.25 * yy * yy)
+        z = np.zeros_like(ux)
+        return np.stack([ux, z, z], axis=1)
+
+    def bcs(self, Z):
+        return [
+            DirichletBC(Z.V, self.driver, 4),
+            DirichletBC(Z.V, (0.0, 0.0, 0.0), [1, 2, 3, 5, 6]),
         ]
 
     def has_nullspace(self):

@@ -10,8 +10,8 @@ directory.
 (``build/`` is git-ignored.)  The whole output of run i goes to
 ``OUT_DIR/ab_<i>_<parent|change>.log``.  For each run this prints its
 exit code and the lines that carry the comparison: the kernel rows, the
-bench sweep, the profiled linear step, the Jacobian action and the
-nref=3 sweep.  Exits non-zero if any run failed.
+bench sweep, the profiled linear steps, the Jacobian action, the nref=3
+sweep and the driver sweeps (2D headline, 3D scale row, 3D step).  Exits non-zero if any run failed.
 """
 
 import os
@@ -19,8 +19,9 @@ import subprocess
 import sys
 
 ORDER = ("parent", "change", "change", "parent")
-KEYS = ("K1 ", "K2 ", "kernel build:", "bench config:",
-        "profiled linear step:", "Jacobian action", "nref=3: Re")
+KEYS = ("K1 ", "K2 ", "K3 ", "kernel build:", "bench config:",
+        "profiled linear step:", "Jacobian action", "nref=3: Re",
+        "headline protocol", "3D scale row", "3D step")
 
 
 def main(parent, change, out_dir):

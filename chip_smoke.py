@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernel from ``alfi_torch/csrc`` and print the seconds;
+   then build the solvers whose tables phases 3 and 3a read;
 3. hold the fused gather-GEMV-scatter kernel against its plain PyTorch
-   version on the card at every main-path shape (the bench config's K1
+   version on the card at every 2D main-path shape (the bench config's K1
    smoother, K1 Schoeberl and K2 tables of levels 2 and 1, and the nref=3
    fine level's K1 and K2 tables), each bare and masked (the main path's
    masks; the Schoeberl tables, which the main path calls bare, with
@@ -17,7 +18,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    max relative error <= 1e-13 and two launches bitwise equal; print the
    eager and device times of kernel, plain version and one cuSPARSE CSR
    SpMV of the same operator (``library``), the kernel's device time with
-   L2 cold, and its bound;
+   L2 cold, its bound, and the device time of the kernel's other path
+   (pair or strided) where the table allows both;
+3a. the same at the 3D shapes: the K1 smoother (m = 189), K1 Schoeberl
+   (m = 27) and K2 (nld = 42) tables of ldc3d [P2+FB]^3 baseN=4 nref=2,
+   levels 2 and 1 (level 1's tables are the fine tables of nref=1), and
+   the [P1+FB]^3 fine tables of the 3D step on its gmsh mesh (m = 201,
+   24, nld = 24); then ``torch.linalg.inv`` (the patch factorisation, a
+   library call) is timed at the 3D batches (4913, 189, 189) and
+   (729, 189, 189);
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -39,13 +48,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    count and at most its Krylov count plus one per Newton step; the
    fused kernel must have been launched for K1 and K2.  One Newton
    linear step of the Re=1000 solve is traced as in phase 5.  A second
-   solver over the same ladder must load all 12 checkpoints, solve
-   nothing and reproduce every count;
+   run of the same solver over the same ladder must load all 12
+   checkpoints, solve nothing and reproduce every count;
+8. 3D parity: ldc3d baseN=2 nref=1 over Re 1/10/100 must take the JAX
+   package's counts, 6/2, 5/2, 6/3 with [P2+FB]^3 (k=2) and 9/2, 6/2,
+   9/3 with [P1+FB]^3 (k=1, through BubbleTransfer);
+9. the 3D scale row at full width, through the driver as phase 7: ldc3d
+   [P2+FB]^3-P0, baseN=4, nref=2 (284,451 dofs), SUPG, --restriction,
+   smoothing 10, --checkpoint, Re 1, 10, 100, 200, ..., 500, held to the
+   JAX package's committed counts
+   (results/logs/ldc3d_p2fb_nref2_re500_cpu.log) by phase 7's rule; peak
+   device memory printed, one Newton linear step at Re=500 traced;
+10. [P1+FB]^3 on a real mesh: the 3D backwards-facing step on
+   tests/fixtures/bfs3d_coarse55.msh (76,132 dofs; an outflow, so no
+   pressure null space), k=1, nref=1, SUPG weight 0.05, --restriction,
+   Re 1, 10, 50, 100, held to results/logs/bfs3d_p1fb_coarse55_re500.log
+   by the same rule;
 
-then print the kernel table as one JSON line and, last, the result line
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-CUDA is unavailable or the ``alfi_torch`` package is not beside this
-file.
+then print the kernel table as one JSON line (every table of phases 3
+and 3a in the variant its main path calls, with the launches of the
+phase that drives it: 7 for the 2D tables, 6 for nref=3, 9 and 10 for
+the 3D ones) and, last, the result line ``{"ok": true, "device":
+{...}}``.  Exits non-zero without a result when CUDA is unavailable or
+the ``alfi_torch`` package is not beside this file.
 """
 
 import json
@@ -71,6 +96,26 @@ HEADLINE_JAX = {1: (6, 2), 10: (5, 2), 100: (10, 3), 200: (13, 3),
                 700: (15, 3), 800: (16, 3), 900: (15, 3), 1000: (15, 3)}
 #: Re at which the counts must equal the JAX package's exactly
 HEADLINE_EXACT = (1, 10, 100)
+#: 3D parity at ldc3d baseN=2 nref=1 (JAX package, CPU f64), by k
+CAVITY3D_COUNTS = {2: [(6, 2), (5, 2), (6, 3)], 1: [(9, 2), (6, 2), (9, 3)]}
+#: the 3D scale row (scripts/queue.py stage f3) and the JAX package's
+#: committed counts (results/logs/ldc3d_p2fb_nref2_re500_cpu.log)
+SCALE_ARGV = ["--discretisation", "pkp0", "--mh", "uniform", "--k", "2",
+              "--baseN", "4", "--nref", "2", "--stabilisation-type", "supg",
+              "--restriction", "--smoothing", "10", "--checkpoint"]
+SCALE_JAX = {1: (6, 2), 10: (3, 2), 100: (6, 3), 200: (7, 3), 300: (6, 3),
+             400: (6, 3), 500: (6, 3)}
+SCALE_EXACT = (1, 10, 100)
+SCALE_DOFS = 284451
+#: [P1+FB]^3 on the 3D step's gmsh mesh (scripts/queue.py stage f2) and
+#: the counts of results/logs/bfs3d_p1fb_coarse55_re500.log
+STEP_MESH = os.path.join("tests", "fixtures", "bfs3d_coarse55.msh")
+STEP_ARGV = ["--discretisation", "pkp0", "--mh", "uniform", "--k", "1",
+             "--baseN", "0", "--nref", "1", "--stabilisation-type", "supg",
+             "--stabilisation-weight", "0.05", "--restriction",
+             "--smoothing", "10", "--checkpoint"]
+STEP_JAX = {1: (12, 2), 10: (10, 2), 50: (16, 3), 100: (18, 3)}
+STEP_DOFS = 76132
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -78,7 +123,8 @@ HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
 #: bytes written between launches to evict the 50 MB L2
 FLUSH_BYTES = 128 << 20
-KERNEL_NAME = "gather_gemv_scatter_kernel"
+#: both kernels of the source (pair and strided) carry this in their name
+KERNEL_NAME = "gather_gemv_scatter"
 PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
                "(pallas_call at :81; deleted in aaee1ce)")
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 (plain-XLA batch-major "
@@ -117,7 +163,9 @@ def _device_ms(fn, reps=20, only=None, before=None):
     """Device time per call (ms) from a torch.profiler trace: summed over
     every kernel ``fn`` runs, or over the kernels whose name holds
     ``only``; ``before()`` runs ahead of each call (untimed when ``only``
-    leaves it out).  None when the trace shows no such kernel."""
+    leaves it out).  With ``only`` (one such kernel per call) the mean
+    is over the launches the trace kept.  None when the trace shows no
+    such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,9 +177,13 @@ def _device_ms(fn, reps=20, only=None, before=None):
                 before()
             fn()
         torch.cuda.synchronize()
-    total = sum(us for name, us in _device_kernels(prof)
-                if only is None or only in name)
-    return total / reps / 1e3 if total > 0 else None
+    times = [us for name, us in _device_kernels(prof)
+             if only is None or only in name]
+    if not times:
+        return None
+    # one named kernel per call: average over the launches the trace
+    # kept (it may drop some); else everything per call
+    return sum(times) / (len(times) if only else reps) / 1e3
 
 
 def _fmt(ms):
@@ -188,12 +240,14 @@ def _check_kernel(name, op, rng, flush, mask=None):
     from alfi_torch.kernels import GatherGemvScatter
 
     dev = op.device
+    main_op = op
     nb, m, _ = op.ashape
     A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
     x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
     p = torch.as_tensor(rng.standard_normal(op.n), device=dev)
     idx = op.pidx.cpu().numpy()
     bare = GatherGemvScatter(idx, op.n, op.use, device=dev)
+    main_masked = op.out_keep is not None
     if op.in_keep is None and op.out_keep is None:
         op = GatherGemvScatter(idx, op.n, op.use, in_mask=mask,
                                out_mask=mask, device=dev)
@@ -234,24 +288,64 @@ def _check_kernel(name, op, rng, flush, mask=None):
         ms_k2, ms_p2 = _median_ms(kernel), _median_ms(plain)
         bound_ms, bound_by = _bound(o)
         dev_ms = _device_ms(kernel, only=KERNEL_NAME)
+        cold_ms = _device_ms(kernel, only=KERNEL_NAME, before=flush)
+        # the other path, where the table allows both (an even m <= 64
+        # runs the pair kernel; the strided one takes it too)
+        other_ms = None
+        if m % 2 == 0 and m <= 64:
+            o.path = 2
+            y_other = kernel()
+            torch.cuda.synchronize()
+            other_err = float((y_other - yp).abs().max()) / max(
+                float(yp.abs().max()), 1e-300)
+            if not other_err <= REL_TOL:
+                raise AssertionError("%s: strided kernel vs plain max rel "
+                                     "err %.3e" % (name, other_err))
+            other_ms = _device_ms(kernel, only=KERNEL_NAME)
+            o.path = 0
         r = {"name": name, "shape": (nb, m), "masked": masked,
+             "op": main_op if masked == main_masked else None,
              "abs_err": abs_err, "rel_err": rel_err,
-             "ms": min(ms_k1, ms_k2), "dev_ms": dev_ms,
-             "cold_ms": _device_ms(kernel, only=KERNEL_NAME, before=flush),
+             "ms": min(ms_k1, ms_k2), "dev_ms": dev_ms, "cold_ms": cold_ms,
+             "other_dev_ms": other_ms,
              "plain_ms": min(ms_p1, ms_p2), "plain_dev_ms": _device_ms(plain),
              "library_ms": lib_ms, "library_dev_ms": lib_dev,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "share": (bound_ms / dev_ms) if dev_ms else None}
-        print("%-17s %6d x %-2d %-6s %8.2e  %s (%s, cold %s) | %6.2f us "
-              "%-5s %5s | %s (%s) | %s (%s)" % (
+        print("%-22s %6d x %-3d %-6s %8.2e  %s (%s, cold %s, strided %s) | "
+              "%7.2f us %-5s %5s | %s (%s) | %s (%s)" % (
                   name, nb, m, "masked" if masked else "bare", rel_err,
-                  _fmt(r["ms"]), _fmt(dev_ms), _fmt(r["cold_ms"]),
+                  _fmt(r["ms"]), _fmt(dev_ms), _fmt(cold_ms),
+                  "-" if other_ms is None else _fmt(other_ms),
                   1e3 * bound_ms, bound_by,
                   "-" if r["share"] is None else "%.0f%%" % (100 * r["share"]),
                   _fmt(r["plain_ms"]), _fmt(r["plain_dev_ms"]),
                   _fmt(lib_ms), _fmt(lib_dev)), flush=True)
         out.append(r)
     return out
+
+
+def _time_patch_inverses(dev):
+    """torch.linalg.inv (the patch factorisation; a library call, as in
+    the JAX package) at the 3D scale row's star batches, f64: median of 3
+    CUDA-event times after one warm-up, and the inverse's residual."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for nb in (4913, 729):
+        A = torch.randn((nb, 189, 189), dtype=torch.float64, device=dev,
+                        generator=gen)
+        A += 189.0 * torch.eye(189, dtype=torch.float64, device=dev)
+        inv = torch.linalg.inv(A)
+        resid = float((torch.bmm(A[:8], inv[:8])
+                       - torch.eye(189, dtype=torch.float64,
+                                   device=dev)).abs().max())
+        if not resid <= 1e-10:
+            raise AssertionError("patch inverses: residual %.3e" % resid)
+        ms = _median_ms(lambda: torch.linalg.inv(A), reps=3, inner=1)
+        print("K3 torch.linalg.inv (%d, 189, 189) f64: %.3f ms (library "
+              "call; residual %.2e)" % (nb, ms, resid), flush=True)
+        del A, inv
 
 
 def _profile_linear_step(solver):
@@ -291,41 +385,49 @@ def _profile_linear_step(solver):
     for kname, (cnt, us) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][1])[:10]:
         print("  %8.2f ms %6d x  %s" % (us / 1e3, cnt, kname))
+    fused = sum(us for kname, us in kern if KERNEL_NAME in kname) / 1e6
+    print("  the fused kernel: %.4f s = %.1f%% of device busy time"
+          % (fused, 100.0 * fused / max(busy, 1e-300)), flush=True)
 
 
-def _headline_sweep(dev):
-    """Phase 7: the headline SUPG protocol through the port's driver, in a
-    temporary working directory; returns the fused kernel's launches per
-    use over the sweep."""
+def _driver_sweep(label, solver, args, expected, exact, ndofs):
+    """One continuation through the port's driver (run_solver with
+    --checkpoint) in a temporary working directory, as phases 7, 9 and 10
+    run it.  ``expected``: Re -> the JAX package's (Krylov, Newton); every
+    Re must converge to a finite state, take those counts exactly at the
+    Re in ``exact`` and elsewhere the same Newton count and at most one
+    more Krylov iteration per Newton step.  The launch counts are zeroed
+    just before the sweep and read just after (returned per table, by
+    ``id``).  Then one Newton linear step of
+    the last Re is traced, and a second run over the checkpoints must
+    load them all, solve nothing and reproduce the counts."""
     import tempfile
 
     import numpy as np
     import torch
 
-    from alfi_torch import (
-        get_default_parser,
-        get_solver,
-        kernels,
-        run_solver,
-    )
-    from alfi_torch.problems import TwoDimLidDrivenCavityProblem
+    from alfi_torch import kernels, run_solver
 
-    res = list(HEADLINE_JAX)
-    args = get_default_parser().parse_args(HEADLINE_ARGV)
-    problem = TwoDimLidDrivenCavityProblem(args.baseN)
+    res = list(expected)
+    if solver.Z.dim != ndofs:
+        raise AssertionError("%s: %d dofs, expected %d"
+                             % (label, solver.Z.dim, ndofs))
+    solver.verbose = False
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            solver = get_solver(args, problem, device=dev)
-            solver.verbose = False
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             results = run_solver(solver, res, args)
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
             launches = dict(kernels.GatherGemvScatter.launches)
+            per_table = {id(t): t.launched
+                         for t in kernels.GatherGemvScatter._tables_alive}
+            peak = torch.cuda.max_memory_allocated()
             chkdir = os.path.join("checkpoint", str(solver.Z.dim))
             for re in res:
                 with np.load(os.path.join(
@@ -333,47 +435,53 @@ def _headline_sweep(dev):
                     finite = bool(np.isfinite(chk["u"]).all()
                                   and np.isfinite(chk["p"]).all())
                 if not (results[re]["converged"] and finite):
-                    raise AssertionError("headline Re=%s did not converge "
-                                         "(finite=%s)" % (re, finite))
+                    raise AssertionError("%s Re=%s did not converge "
+                                         "(finite=%s)" % (label, re, finite))
             counts = {re: (results[re]["linear_iter"],
                            results[re]["nonlinear_iter"]) for re in res}
-            print("headline protocol: %d dofs, SUPG shakib, restriction, "
-                  "Re %s -> %s (%d steps) in %.3f s"
-                  % (solver.Z.dim, res[0], res[-1], len(res), total),
-                  flush=True)
-            print("headline seconds per Re: %s" % ", ".join(
-                "%s: %.3f" % (re, 60.0 * results[re]["time"]) for re in res))
-            print("headline Krylov/Newton per Re (JAX package): %s"
-                  % ", ".join("%s: %d/%d (%d/%d)" % ((re,) + counts[re]
-                                                     + HEADLINE_JAX[re])
-                              for re in res))
-            print("headline kpn per Re: %s" % ", ".join(
+            print("%s: %d dofs, Re %s -> %s (%d steps) in %.3f s; peak "
+                  "device memory %.3f GB (%d bytes)"
+                  % (label, solver.Z.dim, res[0], res[-1], len(res), total,
+                     peak / 1e9, peak), flush=True)
+            print("%s seconds per Re: %s" % (label, ", ".join(
+                "%s: %.3f" % (re, 60.0 * results[re]["time"]) for re in res)))
+            print("%s Krylov/Newton per Re (JAX package): %s"
+                  % (label, ", ".join("%s: %d/%d (%d/%d)"
+                                      % ((re,) + counts[re] + expected[re])
+                                      for re in res)))
+            print("%s kpn per Re: %s" % (label, ", ".join(
                 "%s: %.2f" % (re, counts[re][0] / counts[re][1])
-                for re in res))
-            print("headline fused kernel launches per use: %s" % launches,
+                for re in res)))
+            print("%s fused kernel launches per use: %s (%.1f and %.1f per "
+                  "Krylov iteration)"
+                  % (label, launches,
+                     launches["K1"] / sum(k for k, _ in counts.values()),
+                     launches["K2"] / sum(k for k, _ in counts.values())),
                   flush=True)
             for re in res:
-                (k, n), (kj, nj) = counts[re], HEADLINE_JAX[re]
-                ok = ((k, n) == (kj, nj) if re in HEADLINE_EXACT
+                (k, n), (kj, nj) = counts[re], expected[re]
+                ok = ((k, n) == (kj, nj) if re in exact
                       else n == nj and k <= kj + nj)
                 if not ok:
                     raise AssertionError(
-                        "headline Re=%s: Krylov/Newton %d/%d against the "
-                        "JAX package's %d/%d" % (re, k, n, kj, nj))
+                        "%s Re=%s: Krylov/Newton %d/%d against the "
+                        "JAX package's %d/%d" % (label, re, k, n, kj, nj))
             for use in ("K1", "K2"):
                 if launches[use] <= 0:
                     raise AssertionError("the fused kernel was not launched "
-                                         "for %s on the headline path" % use)
+                                         "for %s on the %s path"
+                                         % (use, label))
             _profile_linear_step(solver)
 
-            # resume: a second solver loads every checkpoint, solves nothing
-            again = get_solver(args, problem, device=dev)
+            # resume: the checkpoints are loaded, nothing is solved
+            solve = solver.solve
 
             def no_solve(re):
                 raise AssertionError("resumed sweep solved Re=%s" % re)
 
-            again.solve = no_solve
-            resumed = run_solver(again, res, args)
+            solver.solve = no_solve
+            resumed = run_solver(solver, res, args)
+            solver.solve = solve
             if not all(resumed[re].get("checkpointed") for re in res):
                 raise AssertionError("resumed sweep did not load every "
                                      "checkpoint")
@@ -382,11 +490,11 @@ def _headline_sweep(dev):
             if rcounts != counts:
                 raise AssertionError("resumed counts %s != %s"
                                      % (rcounts, counts))
-            print("headline resume: %d checkpoints loaded, nothing solved, "
-                  "counts reproduced" % len(res), flush=True)
+            print("%s resume: %d checkpoints loaded, nothing solved, "
+                  "counts reproduced" % (label, len(res)), flush=True)
         finally:
             os.chdir(cwd)
-    return launches
+    return per_table
 
 
 def _solve_sweep(solver, res):
@@ -419,8 +527,17 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from alfi_torch import ConstantPressureSolver, kernels
-    from alfi_torch.problems import TwoDimLidDrivenCavityProblem
+    from alfi_torch import (
+        ConstantPressureSolver,
+        get_default_parser,
+        get_solver,
+        kernels,
+    )
+    from alfi_torch.problems import (
+        ThreeDimBackwardsFacingStepProblem,
+        ThreeDimLidDrivenCavityProblem,
+        TwoDimLidDrivenCavityProblem,
+    )
 
     warnings.filterwarnings("ignore", message="Sparse")
     dev = torch.device("cuda")
@@ -442,42 +559,72 @@ def main():
         if "ptxas info" in line:
             print("  " + line.strip())
 
-    # 3. the fused kernel vs its plain version on the main path's tables;
-    # the solvers run on the card by default
+    # the solvers whose tables phases 3 and 3a read; they run on the card
+    # by default.  The headline, scale and step solvers come from the
+    # driver's get_solver, as phases 7, 9 and 10 run them.
     def make(baseN, nref, **kw):
         return ConstantPressureSolver(
             TwoDimLidDrivenCavityProblem(baseN), nref=nref, k=2,
             solver_type="almg", hierarchy="uniform", gamma=1e4,
             verbose=False, **kw)
 
-    t0 = time.perf_counter()
-    bench = make(16, 2)
-    print("bench solver built: %d dofs, %.2f s"
-          % (bench.Z.dim, time.perf_counter() - t0), flush=True)
-    t0 = time.perf_counter()
-    big = make(16, 3)
-    print("nref=3 solver built: %d dofs, %.2f s"
-          % (big.Z.dim, time.perf_counter() - t0), flush=True)
-    vmg = bench.vmg
-    ops = [("K1 smoother L%d" % l, vmg.patch_solvers[l - 1][1], None)
-           for l in (2, 1)]
-    ops += [("K1 schoeberl L%d" % (t.l + 1), t.papply, t.zmask)
-            for t in reversed(vmg.schoeberl)]
-    ops += [("K2 level L%d" % l, vmg.levels[l].matvec, None)
-            for l in (2, 1)]
-    ops += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None),
-            ("K2 level nref3", big.vmg.levels[-1].matvec, None)]
+    def timed(label, build):
+        t0 = time.perf_counter()
+        solver = build()
+        torch.cuda.synchronize()
+        print("%s solver built: %d dofs, %.2f s"
+              % (label, solver.Z.dim, time.perf_counter() - t0), flush=True)
+        return solver
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    parser = get_default_parser()
+    head_args = parser.parse_args(HEADLINE_ARGV)
+    scale_args = parser.parse_args(SCALE_ARGV)
+    step_args = parser.parse_args(STEP_ARGV)
+    bench = timed("bench", lambda: make(16, 2))
+    head = timed("headline", lambda: get_solver(
+        head_args, TwoDimLidDrivenCavityProblem(head_args.baseN),
+        device=dev))
+    big = timed("nref=3", lambda: make(16, 3))
+    scale = timed("3D scale row", lambda: get_solver(
+        scale_args, ThreeDimLidDrivenCavityProblem(scale_args.baseN),
+        device=dev))
+    step = timed("3D step", lambda: get_solver(
+        step_args, ThreeDimBackwardsFacingStepProblem(
+            os.path.join(here, STEP_MESH)), device=dev))
+
+    def tables(vmg, levels, tag=""):
+        """(name, table, mask for the masked variant) of a hierarchy's K1
+        smoother, K1 Schoeberl and K2 tables at ``levels``."""
+        out = [("K1 smoother %sL%d" % (tag, l), vmg.patch_solvers[l - 1][1],
+                None) for l in levels]
+        out += [("K1 schoeberl %sL%d" % (tag, t.l + 1), t.papply, t.zmask)
+                for t in reversed(vmg.schoeberl) if t.l + 1 in levels]
+        out += [("K2 level %sL%d" % (tag, l), vmg.levels[l].matvec, None)
+                for l in levels]
+        return out
+
+    # 3. the fused kernel vs its plain version on the 2D main-path tables
+    ops2d = tables(head.vmg, (2, 1))
+    ops2d += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None),
+              ("K2 level nref3", big.vmg.levels[-1].matvec, None)]
+    # 3a. and on the 3D ones
+    ops3d = tables(scale.vmg, (2, 1), "3D ") + tables(step.vmg, (1,),
+                                                      "step ")
     flush_buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
                             device=dev)
     rng = np.random.default_rng(0)
-    print("%-17s %11s %-6s %8s  %s" % (
+    print("%-22s %12s %-6s %8s  %s" % (
         "operator", "blocks x m", "masks", "rel err",
-        "kernel ms eager (device, cold) | bound, share | plain ms eager "
-        "(device) | library ms eager (device)"))
+        "kernel ms eager (device, cold, other path) | bound, share | plain "
+        "ms eager (device) | library ms eager (device)"))
     table = []
-    for name, op, mask in ops:
+    for name, op, mask in ops2d + ops3d:
         table += _check_kernel(name, op, rng, flush_buf.zero_, mask)
+        torch.cuda.empty_cache()
     del flush_buf
+    _time_patch_inverses(dev)
+    torch.cuda.empty_cache()
 
     # 4. reference parity at the small config
     small = make(4, 1)
@@ -538,25 +685,69 @@ def main():
           "%.3f ms per call" % (ms_jvp, ms_res), flush=True)
 
     # 6. nref=3
+    kernels.reset_launch_counts()
     _, t_big = _solve_sweep(big, [1, 10])
     print("nref=3: Re 1->10 in %.3f s" % t_big, flush=True)
+    launched = {id(t): t.launched
+                for t in kernels.GatherGemvScatter._tables_alive}
     del big
+    torch.cuda.empty_cache()
 
-    # 7. the headline protocol through the driver (this slice's main path)
-    headline = _headline_sweep(dev)
+    # 7. the headline protocol through the driver
+    per_table = _driver_sweep("headline protocol", head, head_args,
+                              HEADLINE_JAX, HEADLINE_EXACT, 41474)
+    launched.update((k, v) for k, v in per_table.items() if v)
+    del head, bench
+    torch.cuda.empty_cache()
 
-    src = os.path.relpath(kernels.SOURCE,
-                          os.path.dirname(os.path.abspath(__file__)))
+    # 8. 3D parity at the small cavity, [P2+FB]^3 and [P1+FB]^3
+    for k, expected in sorted(CAVITY3D_COUNTS.items(), reverse=True):
+        small = ConstantPressureSolver(
+            ThreeDimLidDrivenCavityProblem(2), nref=1, k=k,
+            solver_type="almg", hierarchy="uniform", gamma=1e4,
+            verbose=False)
+        rows, _ = _solve_sweep(small, BENCH_RES)
+        counts = [(r[1], r[2]) for r in rows]
+        if counts != expected:
+            raise AssertionError("ldc3d k=%d counts %s != JAX package %s"
+                                 % (k, counts, expected))
+        print("ldc3d baseN=2 nref=1 k=%d (%d dofs, %s, prolongation %s): "
+              "counts equal the JAX package's: %s"
+              % (k, small.Z.dim, small.Z.V.element.name,
+                 type(small.vmg.prolongs[0]).__name__, counts), flush=True)
+    del small
+
+    # 9. the 3D scale row at full width (this slice's main path)
+    per_table = _driver_sweep("3D scale row", scale, scale_args,
+                              SCALE_JAX, SCALE_EXACT, SCALE_DOFS)
+    launched.update((k, v) for k, v in per_table.items() if v)
+    del scale
+    torch.cuda.empty_cache()
+
+    # 10. [P1+FB]^3 on the 3D step's gmsh mesh
+    per_table = _driver_sweep("3D step", step, step_args, STEP_JAX,
+                              (1, 10), STEP_DOFS)
+    launched.update((k, v) for k, v in per_table.items() if v)
+
+    src = os.path.relpath(kernels.SOURCE, here)
     entries = []
-    for use, name, replaces in (("K1", "K1 smoother L2", PALLAS_GEMV),
-                                ("K2", "K2 level L2", XLA_LEVEL_APPLY)):
-        r = next(r for r in table if r["name"] == name and r["masked"])
+    for r in table:
+        if r["op"] is None:
+            continue  # not the variant the main path calls
+        use = r["op"].use
+        n_launch = launched.get(id(r["op"]), 0)
+        if n_launch <= 0:
+            raise AssertionError("%s: the main path never launched this "
+                                 "table's kernel" % r["name"])
         entries.append({
-            "name": "gather_gemv_scatter (%s, %s, masked)" % (use, name),
-            "route": "cuda", "source": src, "replaces": replaces,
-            "launches": headline[use],
+            "name": "gather_gemv_scatter (%s, %d x %d, %s)" % (
+                r["name"], r["shape"][0], r["shape"][1],
+                "masked" if r["masked"] else "bare"),
+            "route": "cuda", "source": src,
+            "replaces": PALLAS_GEMV if use == "K1" else XLA_LEVEL_APPLY,
+            "launches": n_launch,
             "max_abs_err": max(t["abs_err"] for t in table
-                               if t["name"].startswith(use)),
+                               if t["name"] == r["name"]),
             "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_dev_ms"]})

@@ -223,6 +223,31 @@ def test_iters_harness_prints_both_tables(tmp_path):
 def test_iters_harness_rejects_unported_problems():
     from alfi_torch.examples.iters import main
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--problem", "ldc3d", "--discretisation", "pkp0",
+    with pytest.raises(NotImplementedError, match="item 10"):
+        main(["--problem", "dfg", "--discretisation", "pkp0",
               "--nref-start", "1", "--nref-end", "1", "--device", "cpu"])
+
+
+def test_iters_harness_runs_the_3d_cavity(tmp_path, monkeypatch, capsys):
+    """--problem ldc3d at baseN=2 nref=1 ([P2+FB]^3-P0, 5,163 dofs): two
+    solve records with the JAX package's counts 6/2 and 5/2, and the
+    checkpoint directory keyed by the dof count."""
+    from alfi_torch.examples.compare_iters import solve_records
+    from alfi_torch.examples.iters import main, reynolds_ladder
+
+    torch.set_num_threads(1)
+    monkeypatch.chdir(tmp_path)
+    main(["--problem", "ldc3d", "--discretisation", "pkp0", "--mh",
+          "uniform", "--k", "2", "--baseN", "2", "--nref-start", "1",
+          "--nref-end", "1", "--re-max", "10", "--checkpoint", "--device",
+          "cpu"])
+    out = capsys.readouterr().out
+    assert "Number of degrees of freedom: 5163" in out
+    log = tmp_path / "run.log"
+    log.write_text(out)
+    assert solve_records(str(log)) == {1.0: (6, 2), 10.0: (5, 2)}
+    assert sorted(os.listdir(tmp_path / "checkpoint" / "5163")) == [
+        "nssolution-Re-1.npz", "nssolution-Re-10.npz"]
+    assert reynolds_ladder(400, bfs=True) == [1, 10, 50, 100, 150, 200, 250,
+                                              300, 350, 400]
+    assert reynolds_ladder(300) == [1, 10, 100, 200, 300]

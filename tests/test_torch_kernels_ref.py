@@ -152,6 +152,25 @@ def test_bound_counts_what_the_function_needs(masked, nbytes):
                                rel=1e-12)
 
 
+@pytest.mark.parametrize("masked, nbytes", [(False, 248), (True, 218)])
+def test_bound_on_an_odd_m_table(masked, nbytes):
+    """The same count at an odd m (A is dense, no padded leading
+    dimension): idx [[0, 1, 2], [2, 3, 4]], n = 5, mask [1, 1, 1, 1, 0].
+    Bare: 18 A entries, 6 indices, x at 5 dofs, 5 outputs = 144 + 24 + 40
+    + 40 B.  Masked: block 0 keeps its 3 rows x 3 columns, block 1 the
+    rows of dofs 2, 3 and the columns of dofs 2, 3 (13 entries), the
+    indices, the out, x at 4 dofs, the in-mask and out-mask, passthrough
+    at dof 4 = 104 + 24 + 40 + 32 + 5 + 5 + 8 B."""
+    cs = _chip_smoke()
+    mask = np.array([1.0, 1.0, 1.0, 1.0, 0.0]) if masked else None
+    op = kernels.GatherGemvScatter(np.array([[0, 1, 2], [2, 3, 4]]), 5, "K1",
+                                   in_mask=mask, out_mask=mask, device="cpu")
+    ms, by = cs._bound(op)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / cs.HBM_BYTES_PER_S,
+                               rel=1e-12)
+
+
 def _table(rng, nb, m, n):
     """Random (nb, m) index table into [0, n) with pads on both sides."""
     return rng.integers(-3, n + 3, size=(nb, m))
@@ -230,6 +249,59 @@ def test_fused_op_plain_matches_reference(m, masks):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-14, atol=1e-14)
 
 
+def _loop_reference(A, x, idx, n, in_mask=None, out_mask=None, p=None):
+    """The same operation as nested Python loops over blocks, rows and
+    columns (no einsum, no add.at)."""
+    nb, m = idx.shape
+    acc = np.zeros(n)
+    for b in range(nb):
+        for i in range(m):
+            k = idx[b, i]
+            if not 0 <= k < n:
+                continue
+            for j in range(m):
+                g = idx[b, j]
+                if 0 <= g < n and (in_mask is None or in_mask[g] == 1.0):
+                    acc[k] += A[b, i, j] * x[g]
+    if out_mask is None:
+        return acc
+    return np.where(out_mask == 1.0, acc, p)
+
+
+@pytest.mark.parametrize("masks", ["none", "in_out"])
+@pytest.mark.parametrize("m", [1, 27, 65, 138, 189])
+def test_fused_op_plain_at_odd_and_long_rows(m, masks):
+    """The 3D block sizes (Schoeberl 27, star 138 and 189), m = 1 and the
+    first m past the pair kernel's range, against a numpy loop."""
+    rng = np.random.default_rng(200 + m)
+    nb, n = 3, 2 * m + 5
+    A = rng.standard_normal((nb, m, m))
+    x, p = rng.standard_normal(n), rng.standard_normal(n)
+    idx = _table(rng, nb, m, n)
+    mask = (rng.random(n) < 0.7).astype(float) if masks == "in_out" else None
+    op = kernels.GatherGemvScatter(idx, n, "K1", in_mask=mask, out_mask=mask,
+                                   device="cpu")
+    out = op(torch.as_tensor(A), torch.as_tensor(x),
+             None if mask is None else torch.as_tensor(p))
+    ref = _loop_reference(A, x, idx, n, mask, mask, p)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-13, atol=1e-13)
+
+
+def test_table_needs_a_column_and_a_known_use():
+    with pytest.raises(ValueError, match="m >= 1"):
+        kernels.GatherGemvScatter(np.zeros((4, 0), dtype=np.int64), 3, "K1",
+                                  device="cpu")
+    with pytest.raises(ValueError, match="use must be"):
+        kernels.GatherGemvScatter(np.array([[0, 1]]), 3, "K9", device="cpu")
+    op = kernels.GatherGemvScatter(np.array([[0, 1, 2]]), 3, "K1",
+                                   device="cpu")
+    x = torch.ones(3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="shape"):
+        op(torch.ones((1, 2, 2), dtype=torch.float64), x)
+    with pytest.raises(ValueError, match="f64"):
+        op(torch.ones((1, 3, 3), dtype=torch.float32), x)
+
+
 @pytest.mark.parametrize("which", ["in_mask", "out_mask"])
 @pytest.mark.parametrize("bad", [0.5, 2.0, -1.0])
 def test_non_binary_mask_raises(which, bad):
@@ -259,11 +331,15 @@ def test_cpu_tensors_never_count_launches():
     out = op(A, torch.ones(3, dtype=torch.float64))
     np.testing.assert_array_equal(out.numpy(), [2.0, 4.0, 2.0])
     assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0}
+    assert op.launched == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4225, 14), (2048, 6), (8192, 12),
-                                   (300, 64), (500, 2)])
+                                   (300, 64), (500, 2), (3000, 42),
+                                   (1000, 24), (2000, 27), (300, 138),
+                                   (300, 189), (200, 65), (900, 1),
+                                   (40, 301)])
 def test_cuda_kernels_match_plain(shape):
     """The fused kernel against its plain version on the card, masked
     (in and out, with passthrough) and unmasked; bitwise equal across
@@ -286,29 +362,43 @@ def test_cuda_kernels_match_plain(shape):
         yk, yk2, yp = op(A, x, *args), op(A, x, *args), op.plain(A, x, *args)
         torch.cuda.synchronize()
         assert kernels.GatherGemvScatter.launches["K1"] == before + 2
+        assert op.launched == 2
         assert torch.equal(yk, yk2)
         err = float((yk - yp).abs().max() / yp.abs().max())
         assert err <= 1e-13
         with pytest.raises(ValueError):
-            op(A[:, :, :1].contiguous(), x, *args)
+            op(A[:-1], x, *args)
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_does_not_take():
-    """An odd m, an m above 64 and an A that is not 16-byte aligned raise
-    on the card (the plain version takes them on the CPU)."""
+    """The pair kernel, when forced (path 1), raises on an odd m, an m
+    above 64 and an A that is not 16-byte aligned; left to choose (path
+    0) the wrapper sends all three to the strided kernel, which agrees
+    with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     for m in (7, 66):
+        op = kernels.GatherGemvScatter(rng.integers(0, 50, size=(10, m)), 50,
+                                       "K1", device=dev)
+        A = torch.as_tensor(rng.standard_normal((10, m, m)), device=dev)
+        x = torch.as_tensor(rng.standard_normal(50), device=dev)
+        assert float((op(A, x) - op.plain(A, x)).abs().max()) <= 1e-12
+        op.path = 1
         with pytest.raises(ValueError, match="even m"):
-            kernels.GatherGemvScatter(rng.integers(0, 50, size=(10, m)), 50,
-                                      "K1", device=dev)
+            op(A, x)
     nb, m, n = 1000, 14, 3000
     op = kernels.GatherGemvScatter(rng.integers(0, n, size=(nb, m)), n,
                                    "K2", device=dev)
-    buf = torch.zeros(nb * m * m + 1, dtype=torch.float64, device=dev)
-    x = torch.zeros(n, dtype=torch.float64, device=dev)
+    buf = torch.as_tensor(rng.standard_normal(nb * m * m + 1), device=dev)
+    x = torch.as_tensor(rng.standard_normal(n), device=dev)
+    A = buf[1:].view(nb, m, m)
+    y_strided, y_pair = op(A, x), op(A.clone(), x)
+    assert float((y_strided - y_pair).abs().max()) <= 1e-12
+    op.path = 1
     with pytest.raises(ValueError, match="aligned"):
-        op(buf[1:].view(nb, m, m), x)
+        op(A, x)
+    op.path = 2
+    assert torch.equal(op(A.clone(), x), y_strided)
