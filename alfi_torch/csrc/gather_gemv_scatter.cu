@@ -57,49 +57,92 @@
 // 1/8 flop per byte; f64 DMMA would raise the flop rate of work whose
 // time is all in moving A.
 //
-// Every block size.  The pair path above takes an even m in [2, 64] and a
-// 16-byte-aligned A: every 2D table of the main path (m = 6, 12, 14) and
-// the even 3D ones (the K2 tables, nld = 42 for [P2+FB]^3 and 24 for
-// [P1+FB]^3).  The 3D patch tables are odd or longer: star patches of
-// [P2+FB]^3 have m = 189, of [P1+FB]^3 m = 138, the Schoeberl patches
-// m = 27.  They take the strided path (gather_gemv_scatter_strided_kernel),
-// which has no upper limit on m:
+// Every block size: the strided kernel.  The pair path above takes an even
+// m in [2, 64] and a 16-byte-aligned A: every 2D table of the main path
+// (m = 6, 12, 14) and the even 3D ones (the K2 tables, nld = 42 for
+// [P2+FB]^3 and 24 for [P1+FB]^3; the Schoeberl table m = 24 of the 3D
+// step).  The 3D patch tables are odd or longer (star patches of [P2+FB]^3
+// have m = 189, of [P1+FB]^3 m = 138, on the step's gmsh mesh 201; the
+// Schoeberl patches m = 27) and take gather_gemv_scatter_strided_kernel,
+// which has no upper limit on m.
 //
-//   * Row length.  A group of G lanes walks a row in steps of G columns,
-//     lane t taking columns t, t + G, t + 2G, ...; a lane loads four
-//     steps before it uses the first.  G is the power of two >= m/4, at
-//     most 32: a whole warp per output dof from m = 65 on (a row of 189
-//     doubles, 1,512 B, is six coalesced 256-byte steps), 8 lanes at
-//     m = 27, so that a short row is still one batch of loads and a warp
-//     carries four dofs.  A dof of a Schoeberl table owns one row, and
-//     with a warp per dof the launch was a chain of dependent loads per
-//     wave of blocks: 57 us at 3,072 x 27 against 23 us for the plain
-//     version (NVIDIA H100 80GB HBM3, 700 W).
+//   * What bounds it: the bytes of the live part of A.  The 3D tables are
+//     ragged.  PatchSet pads every patch to the largest one, pads trailing,
+//     and few patches are the largest: of the 4,913 fine star patches of
+//     ldc3d baseN=4 nref=2 only 128 have 189 dofs (sizes 3 .. 189); on the
+//     step mesh the median patch has 73.5 of 201.  The function needs
+//     sum_b s_b^2 entries (0.679 GB, 0.074 GB at level 1, 0.125 GB on the
+//     step mesh); whole rows of the live dofs, sum_b s_b * m, are 0.903,
+//     0.107 and 0.265 GB, and the whole tables 1.40, 0.21 and 0.71 GB.
+//     Each entry is used for one multiply-add: 1/8 flop per byte.
+//   * Live extents.  The host gives every CSR slot the live extent of its
+//     block (slot_cols, beside slots: one past the last column whose
+//     gather index is >= 0).  A row is read up to there and no further, so
+//     on a K1 table the bytes loaded are the bytes the bound counts; on a
+//     K2 table, whose in-masked columns lie between live ones, about 6 %
+//     more (a -1 before the extent reads x as 0).  A pad column would add
+//     fma(a, 0, p) = p, so leaving it out changes no bit.
+//   * Lanes that fit the rows.  A group of G lanes walks a row in steps of
+//     G columns, lane t taking columns t, t + G, ...; kSteps = 4 steps are
+//     a batch.  G is one number per table, chosen on the host from the
+//     live rows' extents, not from m: the power of two, 4 .. 32, that
+//     takes the 75 % row in two batches (alfi_torch/kernels.py:
+//     strided_lanes_log2).  That is a warp per dof for the star tables
+//     (the 75 % row has 129 columns on the step mesh, where 85 % of the
+//     lanes of a step then carry a column, against 92 % with 16 lanes and
+//     twice the batches per row) and 4 lanes at m = 27, so that a warp
+//     carries 8 dofs of one short row each: 12.2 us at 3,072 x 27 against
+//     the 17.3 of 8 lanes before this redesign (and 57 with a warp per
+//     dof, a chain of dependent loads per wave of CTAs).  What it cost:
+//     one width per table, so a short row of a star table still occupies
+//     a warp; a per-CTA width from a host-sorted dof order would need a
+//     permutation of out and was not tried.
+//   * One stream of batches per dof.  The batches of all rows of a dof
+//     (its CSR list in order, columns ascending) form one stream, and the
+//     next batch's A entries and gather indices are loaded before this
+//     batch's x is gathered; the next slot's id and extent are loaded one
+//     slot ahead.  So the gather latency of x (L2) is paid once per batch
+//     with a batch of A (up to 1 KB per warp) in flight behind it, not
+//     after it: a row of 189 was two dependent rounds of load A, then
+//     gather x; 44 registers, 40 warps per SM.
+//   * What the card said about the gathers (chip_ab.py --ablate, on the
+//     strided kernel before this redesign, NVIDIA H100 80GB HBM3, 700 W): with
+//     x[g] replaced by a constant it ran 11 % faster at 4,913 x 189 (384
+//     -> 341 us), 9 % at 729 x 189 and 2,184 x 201; with the index row
+//     gone too, no faster.  So the gathers cost a tenth, the padding a
+//     quarter to a half.  Staging x per block in shared memory (a warp per
+//     run of rows of one block, row sums to scratch, the last row to
+//     arrive at a dof adds them; no float atomics) was built and measured:
+//     its integer atomic and fence per row cost more than the gathers it
+//     saved, and with a second launch for the sums instead it was level
+//     with this kernel on the star tables and faster only at the fine K2
+//     table.  One launch and no scratch won.
 //   * Odd m and alignment.  A stays dense, (nb, m, m) with no pad, and is
 //     read as 8-byte scalars: a row starts 16-byte aligned only when m is
 //     even, and an f64 load per lane still coalesces to full 32-byte
-//     sectors (a step that straddles a sector shares it with the next
-//     step, which finds it in L1/L2).  A padded leading dimension would
-//     buy 16-byte loads at the price of a second layout for the patch
-//     inverses and 1-4 % more bytes, in a kernel whose time is bytes.
-//   * Bytes at scale.  At the 3D scale row (ldc3d baseN=4 nref=2, n =
-//     259,875 velocity dofs) the fine star table is 4,913 x 189 x 189 x 8 B
-//     = 1.40 GB and the fine K2 table 24,576 x 42 x 42 x 8 B = 0.35 GB:
-//     neither stays in the 50 MB L2, and every row is read exactly once.
-//     A dof has at most 3 slots in a star table and up to 30 in the K2
-//     table.  Four steps of a row (1 KB per warp) are loaded before the
-//     first is used, and the SM holds 64 such warps, about 64 KB in
-//     flight against the 15-20 KB that cover HBM latency at the SM's
-//     share of 3.35 TB/s.  The gather row and x come from L2 (the index
-//     table is 3.7 MB, x 2.1 MB); the three components of a node are
-//     neighbours in k and share their patches, so the warps of a block
-//     find each other's gather rows and x in L1.
+//     sectors.  A padded leading dimension would buy 16-byte loads at the
+//     price of a second layout for the patch inverses.
 //   * Summation order on the strided path: lane t keeps one f64 partial,
-//     updated with fma over its columns t, t + G, ... in ascending order,
-//     slots in CSR list order, then the same xor butterfly.
+//     updated with fma over its columns t, t + G, ... of each row in
+//     ascending order, rows in CSR list order, then the same xor
+//     butterfly.  No atomics; two launches give the same bits.
 //
-// path = 0 picks by m (pair where it applies: it is the faster of the two
-// at the 2D shapes and keeps their times); 1 and 2 force a path, for
+// Which kernel takes which m (path 0), by the card's times (chip_smoke.py
+// prints both kernels for every even m <= 64; NVIDIA H100 80GB HBM3, 700
+// W): the pair kernel keeps every even m <= 64.  At the 2D shapes it is
+// the faster (8,192 x 12: 5.0 against 5.9 us) and was designed there.  At
+// the 3D K2 shapes a dof has up to 30 slots of short rows,
+// and the pair kernel's warp per dof, two slots in flight, beats the
+// strided kernel's few lanes per dof: 3,072 x 42: 20 against 44 us;
+// 9,472 x 24: 28 against 66 us; only at 24,576 x 42 is the strided kernel
+// level (154 against 162 us; cuSPARSE 133).  More slots in flight in the
+// pair kernel (4 or 8 to a batch, with and without loading ahead) were
+// slower at every K2 shape.  The Schoeberl table of the step (1,184 x 24,
+// one slot per dof) would be faster strided (4.4 against 7.0 us); m alone
+// cannot tell it from the K2 table of the same mesh, which has 6 times
+// the launches.
+//
+// path = 0 picks by m; 1 and 2 force the pair or the strided kernel, for
 // measurements.
 
 #include <cuda_runtime.h>
@@ -167,9 +210,44 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
   if (own && j == 0) out[k] = keep ? p : pass[k];
 }
 
-// The strided path: any m >= 1.  Lane t of a group of G = 2^glog lanes
-// takes columns t, t + G, ... of each row of its dof, as 8-byte loads.
-constexpr int kSteps = 4;  // steps of a row loaded before the first is used
+// The strided kernel: any m >= 1 (see the header note).  Lane t of a
+// group of G = 2^glog lanes takes columns t, t + G, ... below the block's
+// live extent of each row of its dof, as 8-byte loads, kSteps steps to a
+// batch.
+constexpr int kSteps = 4;
+
+// One lane's batch: its kSteps columns j0, j0 + G, ... (those below the
+// live extent nc) of the A row of slot s and of its block's gather row.
+struct Batch {
+  double a[kSteps];
+  int g[kSteps];
+
+  __device__ __forceinline__ void load(const double* __restrict__ A,
+                                       const int* __restrict__ gidx, int s,
+                                       int m, int nc, int j0, int G) {
+    const double* __restrict__ row = A + (long long)s * m;
+    const int* __restrict__ grow = gidx + (long long)(s / m) * m;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int j = j0 + u * G;
+      const bool in = j < nc;
+      a[u] = in ? row[j] : 0.0;
+      g[u] = in ? grow[j] : -1;
+    }
+  }
+
+  // p + a . x[g] in ascending columns; a pad (-1) reads 0, and a step
+  // past the live extent adds 0 * 0
+  __device__ __forceinline__ double add(const double* __restrict__ x,
+                                        double p) const {
+    double xv[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : 0.0;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) p = fma(a[u], xv[u], p);
+    return p;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
@@ -177,6 +255,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
                                    const int* __restrict__ gidx,
                                    const int* __restrict__ offsets,
                                    const int* __restrict__ slots,
+                                   const int* __restrict__ slot_cols,
                                    const unsigned char* __restrict__ out_mask,
                                    const double* __restrict__ pass,
                                    double* __restrict__ out, int n, int m,
@@ -187,30 +266,39 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
   const int t = threadIdx.x & (G - 1);
   const bool own = k < n;
   const bool keep = !own || out_mask == nullptr || out_mask[k] != 0;
-  const int qbeg = own ? offsets[k] : 0;
+  int q = own ? offsets[k] : 0;
   const int qend = own ? offsets[k + 1] : 0;
   double p = 0.0;
-  for (int q = qbeg; q < qend; ++q) {
-    const int s = slots[q];
-    const double* __restrict__ row = A + (long long)s * m;
-    const int* __restrict__ grow = gidx + (long long)(s / m) * m;
-    for (int j0 = t; j0 < m; j0 += kSteps * G) {
-      double a[kSteps];
-      int g[kSteps];
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) {
-        const int j = j0 + u * G;
-        const bool in = j < m;
-        a[u] = in ? row[j] : 0.0;
-        g[u] = in ? grow[j] : -1;
-      }
-      double xv[kSteps];
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : 0.0;
-      // ascending columns; a step past the row's end adds 0 * 0
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) p = fma(a[u], xv[u], p);
+  if (q < qend) {
+    // this slot and, loaded ahead, the next
+    int s = slots[q], nc = slot_cols[q], sn = 0, ncn = 0;
+    if (q + 1 < qend) {
+      sn = slots[q + 1];
+      ncn = slot_cols[q + 1];
     }
+    int c0 = 0;
+    Batch cur;
+    cur.load(A, gidx, s, m, nc, t, G);
+    // the batches of the dof's rows as one stream, in list order, columns
+    // ascending: the next batch is loaded before this one's x is gathered
+    while (true) {
+      c0 += kSteps * G;
+      if (c0 >= nc) {
+        if (++q >= qend) break;
+        s = sn;
+        nc = ncn;
+        c0 = 0;
+        if (q + 1 < qend) {
+          sn = slots[q + 1];
+          ncn = slot_cols[q + 1];
+        }
+      }
+      Batch nxt;
+      nxt.load(A, gidx, s, m, nc, c0 + t, G);
+      p = cur.add(x, p);
+      cur = nxt;
+    }
+    p = cur.add(x, p);
   }
   // every lane of the warp reaches this point, as in the pair kernel
   for (int o = G >> 1; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
@@ -225,15 +313,18 @@ extern "C" {
 // `stream` of CUDA device `device`.  Any m >= 1; path 0 picks the kernel
 // by m, 1 forces the pair kernel (m even in [2, 64], A 16-byte and gidx
 // 8-byte aligned), 2 the strided one.  out_mask and pass both null or both
-// set.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for arguments it does not take).
+// set.  The strided kernel's tables (alfi_torch/kernels.py builds them):
+// slot_cols, the live extent of each slot's block, and glog, log2 of its
+// lanes per dof (0..5).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments it does not take).
 int alfi_gather_gemv_scatter(const double* A, const double* x,
                              const int* gidx, const int* offsets,
                              const int* slots,
                              const unsigned char* out_mask,
                              const double* pass, double* out, int n, int m,
-                             int path, int device, void* stream) {
-  if (n < 0 || m < 1 || path < 0 || path > 2 ||
+                             int path, int device, void* stream,
+                             const int* slot_cols, int glog) {
+  if (n < 0 || m < 1 || path < 0 || path > 2 || glog < 0 || glog > 5 ||
       (out_mask == nullptr) != (pass == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool pair_ok = m <= kMaxM && m % 2 == 0 &&
@@ -242,11 +333,11 @@ int alfi_gather_gemv_scatter(const double* A, const double* x,
   if (path == 1 && !pair_ok) return (int)cudaErrorInvalidValue;
   const bool pair = path == 1 || (path == 0 && pair_ok);
   if (n == 0) return (int)cudaSuccess;
-  // lanes per dof: one per column pair (pair), or as many as load the
-  // row in one batch of kSteps steps (strided)
-  const int width = pair ? m / 2 : (m + kSteps - 1) / kSteps;
-  int glog = 0;
-  while (glog < 5 && (1 << glog) < width) ++glog;
+  if (pair) {
+    // lanes per dof: one per column pair
+    glog = 0;
+    while (glog < 5 && (1 << glog) < m / 2) ++glog;
+  }
   int prev = -1;
   cudaGetDevice(&prev);
   if (prev != device) cudaSetDevice(device);
@@ -258,7 +349,8 @@ int alfi_gather_gemv_scatter(const double* A, const double* x,
   else
     gather_gemv_scatter_strided_kernel<<<grid, kThreads, 0,
                                          (cudaStream_t)stream>>>(
-        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
+        A, x, gidx, offsets, slots, slot_cols, out_mask, pass, out, n, m,
+        glog);
   const int err = (int)cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return err;

@@ -23,6 +23,12 @@ first use, into the git-ignored ``_build/`` directory under a name keyed
 by the source's hash, and bound through ``ctypes`` (a plain C interface).
 A table on the CPU runs the plain version; a table on a CUDA device
 launches the kernel or raises.
+
+The 3D tables are ragged: their blocks are padded to the largest one, pads
+trailing.  The strided kernel reads, of a live row, only the columns below
+the block's live extent (``ncols``), with a number of lanes per dof that
+fits the table's rows; both are host tables built here, so that the CPU
+tests can hold them to what the kernel is documented to read.
 """
 
 from __future__ import annotations
@@ -42,6 +48,15 @@ SOURCE = os.path.join(_HERE, "csrc", "gather_gemv_scatter.cu")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+#: the pair kernel takes an even m up to here (csrc: kMaxM)
+PAIR_MAX_M = 64
+#: strided kernel: columns of a row that a lane loads in one batch (csrc:
+#: kSteps)
+STRIDED_STEPS = 4
+#: strided kernel: the lanes per dof are the power of two (4 .. 32) that
+#: takes this quantile of the live rows' extents in two batches
+LANES_QUANTILE = 0.75
 
 _lib = None
 #: compiler output of the build that produced the loaded library
@@ -92,7 +107,8 @@ def load_library():
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.alfi_gather_gemv_scatter.restype = ci
-    lib.alfi_gather_gemv_scatter.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.alfi_gather_gemv_scatter.argtypes = ([vp] * 8 + [ci] * 4
+                                             + [vp, vp, ci])
     _lib = lib
     return lib
 
@@ -108,6 +124,29 @@ def csr_from_table(idx, n):
     if offsets[-1] >= 2 ** 31 or flat.size >= 2 ** 31:
         raise ValueError("table too large for int32 CSR lists")
     return offsets.astype(np.int32), slots.astype(np.int32)
+
+
+def live_extents(gidx):
+    """(nb,) int32: per block, one past the last column whose gather
+    index is >= 0 (0 for a block that gathers nothing).  A -1 before it
+    still reads 0; no column at or past it is read."""
+    live = np.asarray(gidx) >= 0
+    m = live.shape[1]
+    last = m - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0).astype(np.int32)
+
+
+def strided_lanes_log2(row_extents):
+    """log2 of the strided kernel's lanes per dof for a table whose live
+    rows have these extents: the power of two, from 4 lanes (one 32-byte
+    sector per step) to a warp, that takes the LANES_QUANTILE row in two
+    batches of STRIDED_STEPS steps.  From the rows and not from m: the
+    largest block of a ragged table says little about its rows."""
+    if len(row_extents) == 0:
+        return 2
+    q = float(np.quantile(row_extents, LANES_QUANTILE))
+    return int(np.clip(np.ceil(np.log2(max(q / (2 * STRIDED_STEPS), 1.0))),
+                       2, 5))
 
 
 def _mask_keep(mask, n, name):
@@ -134,8 +173,9 @@ class GatherGemvScatter:
     here.  With an out_mask every call passes ``passthrough`` (n,).
     The device is the table's: A, x and passthrough must lie on it.  On
     a CUDA device the kernel takes any m >= 1 (``path`` 0: the pair
-    kernel for an even m <= 64 and a 16-byte-aligned A, else the strided
-    one; 1 or 2 force the pair or the strided kernel, for measurements)."""
+    kernel for an even m <= PAIR_MAX_M and a 16-byte-aligned A, else the
+    strided one; 1 or 2 force the pair or the strided kernel, for
+    measurements)."""
 
     #: kernel launches per use since the last reset_launch_counts()
     launches = {"K1": 0, "K2": 0}
@@ -165,6 +205,8 @@ class GatherGemvScatter:
         owned = idx if out_keep is None else np.where(
             (idx >= 0) & out_keep[idx], idx, -1)
         offsets, slots = csr_from_table(owned, n)
+        ncols = live_extents(gidx)
+        slot_cols = ncols[slots // m]  # of every live row's block
 
         def dev(a):
             return torch.as_tensor(a, device=device)
@@ -175,6 +217,11 @@ class GatherGemvScatter:
         #: the kernel's gather table: in-masked entries are pads too
         self.gidx = dev(gidx.astype(np.int32))
         self.offsets, self.slots = dev(offsets), dev(slots)
+        #: per block, one past its last gathered column; and the same per
+        #: CSR slot (live row), beside ``slots``
+        self.ncols, self.slot_cols = dev(ncols), dev(slot_cols)
+        #: log2 of the strided kernel's lanes per dof
+        self.lanes_log2 = strided_lanes_log2(slot_cols)
         #: the masks as one 0/1 byte (bool) per dof
         self.in_keep = None if in_keep is None else dev(in_keep)
         self.out_keep = None if out_keep is None else dev(out_keep)
@@ -190,7 +237,8 @@ class GatherGemvScatter:
             self._tables = (self.gidx.data_ptr(), self.offsets.data_ptr(),
                             self.slots.data_ptr(),
                             None if self.out_keep is None
-                            else self.out_keep.data_ptr())
+                            else self.out_keep.data_ptr(),
+                            self.slot_cols.data_ptr())
 
     def _check(self, t, name, shape):
         if t.device != self.device:
@@ -213,22 +261,45 @@ class GatherGemvScatter:
         if self._launch is None:
             return self.plain(A, x, passthrough)
         a_ptr = A.data_ptr()
-        if self.path == 1 and (a_ptr % 16 or self.m % 2 or self.m > 64):
-            raise ValueError("the pair kernel takes an even m <= 64 and a "
-                             "16-byte-aligned A, got m=%d" % self.m)
+        if self.path == 1 and (a_ptr % 16 or self.m % 2
+                               or self.m > PAIR_MAX_M):
+            raise ValueError("the pair kernel takes an even m <= %d and a "
+                             "16-byte-aligned A, got m=%d"
+                             % (PAIR_MAX_M, self.m))
         out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
-        gidx, offsets, slots, out_mask = self._tables
+        gidx, offsets, slots, out_mask, slot_cols = self._tables
         err = self._launch(
             a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
             None if passthrough is None else passthrough.data_ptr(),
             out.data_ptr(), self.n, self.m, self.path, self.device.index,
-            torch._C._cuda_getCurrentRawStream(self.device.index))
+            torch._C._cuda_getCurrentRawStream(self.device.index),
+            slot_cols, self.lanes_log2)
         if err != 0:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
         GatherGemvScatter.launches[self.use] += 1
         self.launched += 1
         return out
+
+    def kernel_path(self, path=None):
+        """1 (pair) or 2 (strided): the kernel that ``path`` (default:
+        this table's) launches on a 16-byte-aligned A."""
+        path = self.path if path is None else path
+        if path:
+            return path
+        return 1 if self.m % 2 == 0 and self.m <= PAIR_MAX_M else 2
+
+    def a_bytes(self, path=None):
+        """(loaded, live): the bytes of A that the kernel of ``path``
+        loads in one call, and the bytes of the entries the function
+        needs (row feeds a live output dof, column gathers a live dof).
+        The pair kernel loads every column of a live row; the strided
+        kernel the columns below the block's live extent."""
+        block = self.slots.long() // self.m  # of every live row
+        live = int((self.gidx >= 0).sum(1)[block].sum())
+        if self.kernel_path(path) == 1:
+            return 8 * self.m * int(block.numel()), 8 * live
+        return 8 * int(self.slot_cols.sum()), 8 * live
 
     def plain(self, A, x, passthrough=None):
         """The same operation in plain PyTorch (torch.where masks, an

@@ -18,15 +18,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    max relative error <= 1e-13 and two launches bitwise equal; print the
    eager and device times of kernel, plain version and one cuSPARSE CSR
    SpMV of the same operator (``library``), the kernel's device time with
-   L2 cold, its bound, and the device time of the kernel's other path
-   (pair or strided) where the table allows both;
+   L2 cold, its bound, the bytes of A the kernel loads beside the bytes
+   the bound counts and the rate on the bytes loaded, and the device time
+   of the source's other kernel (pair or strided) where the table allows
+   both;
 3a. the same at the 3D shapes: the K1 smoother (m = 189), K1 Schoeberl
    (m = 27) and K2 (nld = 42) tables of ldc3d [P2+FB]^3 baseN=4 nref=2,
    levels 2 and 1 (level 1's tables are the fine tables of nref=1), and
    the [P1+FB]^3 fine tables of the 3D step on its gmsh mesh (m = 201,
    24, nld = 24); then ``torch.linalg.inv`` (the patch factorisation, a
    library call) is timed at the 3D batches (4913, 189, 189) and
-   (729, 189, 189);
+   (729, 189, 189), beside its bound;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -71,6 +73,10 @@ phase that drives it: 7 for the 2D tables, 6 for nref=3, 9 and 10 for
 the 3D ones) and, last, the result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 3a (the kernel
+rows and the K3 times) and prints no result line: for measurements of the
+kernel alone.
 """
 
 import json
@@ -121,10 +127,13 @@ REL_TOL = 1e-13
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
+#: and in them (the same data sheet), for the K3 library call's bound
+F64_TENSOR_FLOP_PER_S = 67e12
 #: bytes written between launches to evict the 50 MB L2
 FLUSH_BYTES = 128 << 20
 #: both kernels of the source (pair and strided) carry this in their name
 KERNEL_NAME = "gather_gemv_scatter"
+KERNEL_OF_PATH = {1: "pair", 2: "strided"}
 PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
                "(pallas_call at :81; deleted in aaee1ce)")
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 (plain-XLA batch-major "
@@ -163,27 +172,35 @@ def _device_ms(fn, reps=20, only=None, before=None):
     """Device time per call (ms) from a torch.profiler trace: summed over
     every kernel ``fn`` runs, or over the kernels whose name holds
     ``only``; ``before()`` runs ahead of each call (untimed when ``only``
-    leaves it out).  With ``only`` (one such kernel per call) the mean
-    is over the launches the trace kept.  None when the trace shows no
-    such kernel."""
+    leaves it out).  With ``only`` (one such kernel per call) it is
+    the median of the launches the trace kept: one launch in twenty that
+    is held up now and then must not move the number.  None when the
+    trace shows no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if before is not None:
-                before()
-            fn()
+    # a trace now and then comes back without its device events: trace
+    # again, at most three times
+    for _ in range(3):
         torch.cuda.synchronize()
-    times = [us for name, us in _device_kernels(prof)
-             if only is None or only in name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        times = [us for name, us in _device_kernels(prof)
+                 if only is None or only in name]
+        if times:
+            break
     if not times:
         return None
-    # one named kernel per call: average over the launches the trace
+    # one named kernel per call: the median launch of those the trace
     # kept (it may drop some); else everything per call
-    return sum(times) / (len(times) if only else reps) / 1e3
+    if only:
+        return sorted(times)[len(times) // 2] / 1e3
+    return sum(times) / reps / 1e3
 
 
 def _fmt(ms):
@@ -207,26 +224,34 @@ def _library_operator(op, A):
                                    (op.n, op.n))
 
 
-def _bound(op):
-    """(ms, "bytes" or "operations"): the least time of one call, from
-    what this table's data needs, each once: the A entries whose row
-    feeds a live output dof and whose column gathers a live dof (one f64
-    multiply-add each), the index table, x at the dofs gathered, the
-    in-mask only where it zeroes a gathered entry, the out-mask, the
-    passthrough where the out-mask is 0, and out."""
+def _bound_bytes(op):
+    """What one call on this table's data must move, each byte once, by
+    part: the A entries whose row feeds a live output dof and whose
+    column gathers a live dof (one f64 multiply-add each), the index
+    table, x at the dofs gathered, out, the in-mask only where it zeroes
+    a gathered entry, the out-mask, and the passthrough where the
+    out-mask is 0."""
     import torch
 
     nb, m, _ = op.ashape
     live = op.gidx >= 0  # gathered entries: not a pad, in-mask 1
-    entries = int(live.sum(1)[op.slots.long() // m].sum())
-    nbytes = (8 * entries + 4 * nb * m + 8 * op.n
-              + 8 * int(torch.unique(op.gidx[live]).numel()))
+    parts = {"A": op.a_bytes()[1], "index": 4 * nb * m, "out": 8 * op.n,
+             "x": 8 * int(torch.unique(op.gidx[live]).numel())}
     if op.in_keep is not None and bool(((op.pidx < op.n) & ~live).any()):
-        nbytes += op.n
+        parts["in_mask"] = op.n
     if op.out_keep is not None:
-        nbytes += op.n + 8 * int((~op.out_keep).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * entries / F64_FLOP_PER_S
+        parts["out_mask"] = op.n
+        parts["passthrough"] = 8 * int((~op.out_keep).sum())
+    return parts
+
+
+def _bound(op):
+    """(ms, "bytes" or "operations"): the least time of one call, the
+    larger of ``_bound_bytes`` over the memory rate and one f64
+    multiply-add per needed A entry over the f64 rate."""
+    parts = _bound_bytes(op)
+    t_bytes = sum(parts.values()) / HBM_BYTES_PER_S
+    t_ops = 2.0 * (parts["A"] // 8) / F64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -237,7 +262,7 @@ def _check_kernel(name, op, rng, flush, mask=None):
     path calls ``op`` bare); returns one result dict per variant."""
     import torch
 
-    from alfi_torch.kernels import GatherGemvScatter
+    from alfi_torch.kernels import PAIR_MAX_M, GatherGemvScatter
 
     dev = op.device
     main_op = op
@@ -289,22 +314,27 @@ def _check_kernel(name, op, rng, flush, mask=None):
         bound_ms, bound_by = _bound(o)
         dev_ms = _device_ms(kernel, only=KERNEL_NAME)
         cold_ms = _device_ms(kernel, only=KERNEL_NAME, before=flush)
-        # the other path, where the table allows both (an even m <= 64
-        # runs the pair kernel; the strided one takes it too)
+        # the source's other kernel, where the table allows both (the
+        # pair kernel takes an even m up to PAIR_MAX_M, the strided kernel
+        # every m)
         other_ms = None
-        if m % 2 == 0 and m <= 64:
-            o.path = 2
-            y_other = kernel()
+        chosen = o.kernel_path()
+        if m % 2 == 0 and m <= PAIR_MAX_M:
+            o.path = 3 - chosen
+            y_other, y_other2 = kernel(), kernel()
             torch.cuda.synchronize()
             other_err = float((y_other - yp).abs().max()) / max(
                 float(yp.abs().max()), 1e-300)
-            if not other_err <= REL_TOL:
-                raise AssertionError("%s: strided kernel vs plain max rel "
-                                     "err %.3e" % (name, other_err))
+            if not (other_err <= REL_TOL and torch.equal(y_other, y_other2)):
+                raise AssertionError("%s: %s kernel vs plain max rel err "
+                                     "%.3e" % (name, KERNEL_OF_PATH[o.path],
+                                               other_err))
             other_ms = _device_ms(kernel, only=KERNEL_NAME)
             o.path = 0
+        loaded, live = o.a_bytes()
         r = {"name": name, "shape": (nb, m), "masked": masked,
              "op": main_op if masked == main_masked else None,
+             "kernel": KERNEL_OF_PATH[chosen],
              "abs_err": abs_err, "rel_err": rel_err,
              "ms": min(ms_k1, ms_k2), "dev_ms": dev_ms, "cold_ms": cold_ms,
              "other_dev_ms": other_ms,
@@ -312,13 +342,18 @@ def _check_kernel(name, op, rng, flush, mask=None):
              "library_ms": lib_ms, "library_dev_ms": lib_dev,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "share": (bound_ms / dev_ms) if dev_ms else None}
-        print("%-22s %6d x %-3d %-6s %8.2e  %s (%s, cold %s, strided %s) | "
-              "%7.2f us %-5s %5s | %s (%s) | %s (%s)" % (
+        print("%-22s %6d x %-3d %-6s %8.2e  %s %s (%s, cold %s, other %s) | "
+              "%7.2f us %-5s %5s | A %.4f GB loaded, %.4f in the bound, "
+              "%s TB/s | %s (%s) | %s (%s)" % (
                   name, nb, m, "masked" if masked else "bare", rel_err,
+                  r["kernel"] + ("" if chosen == 1 else "/%d lanes"
+                                 % (1 << o.lanes_log2)),
                   _fmt(r["ms"]), _fmt(dev_ms), _fmt(cold_ms),
                   "-" if other_ms is None else _fmt(other_ms),
                   1e3 * bound_ms, bound_by,
                   "-" if r["share"] is None else "%.0f%%" % (100 * r["share"]),
+                  loaded / 1e9, live / 1e9,
+                  "-" if not dev_ms else "%.2f" % (loaded / dev_ms / 1e9),
                   _fmt(r["plain_ms"]), _fmt(r["plain_dev_ms"]),
                   _fmt(lib_ms), _fmt(lib_dev)), flush=True)
         out.append(r)
@@ -343,8 +378,17 @@ def _time_patch_inverses(dev):
         if not resid <= 1e-10:
             raise AssertionError("patch inverses: residual %.3e" % resid)
         ms = _median_ms(lambda: torch.linalg.inv(A), reps=3, inner=1)
+        # its bound: A read and the inverse written once, against about
+        # 2 m^3 operations per block (LU, then the inverse from it) at
+        # the f64 tensor-core rate, which the call's GEMMs use
+        t_bytes = 2.0 * nb * 189 * 189 * 8 / HBM_BYTES_PER_S
+        ops = 2.0 * 189 ** 3 * nb
         print("K3 torch.linalg.inv (%d, 189, 189) f64: %.3f ms (library "
-              "call; residual %.2e)" % (nb, ms, resid), flush=True)
+              "call; residual %.2e); bound %.3f ms by operations at %.0f "
+              "TFLOP/s (%.3f ms outside the tensor cores; bytes %.3f ms)"
+              % (nb, ms, resid, 1e3 * ops / F64_TENSOR_FLOP_PER_S,
+                 F64_TENSOR_FLOP_PER_S / 1e12, 1e3 * ops / F64_FLOP_PER_S,
+                 1e3 * t_bytes), flush=True)
         del A, inv
 
 
@@ -519,7 +563,7 @@ def _solve_sweep(solver, res):
     return rows, t_all
 
 
-def main():
+def main(kernels_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -616,8 +660,8 @@ def main():
     rng = np.random.default_rng(0)
     print("%-22s %12s %-6s %8s  %s" % (
         "operator", "blocks x m", "masks", "rel err",
-        "kernel ms eager (device, cold, other path) | bound, share | plain "
-        "ms eager (device) | library ms eager (device)"))
+        "kernel, ms eager (device, cold, the other kernel) | bound, share | "
+        "bytes of A | plain ms eager (device) | library ms eager (device)"))
     table = []
     for name, op, mask in ops2d + ops3d:
         table += _check_kernel(name, op, rng, flush_buf.zero_, mask)
@@ -625,6 +669,8 @@ def main():
     del flush_buf
     _time_patch_inverses(dev)
     torch.cuda.empty_cache()
+    if kernels_only:
+        return
 
     # 4. reference parity at the small config
     small = make(4, 1)
@@ -740,8 +786,8 @@ def main():
             raise AssertionError("%s: the main path never launched this "
                                  "table's kernel" % r["name"])
         entries.append({
-            "name": "gather_gemv_scatter (%s, %d x %d, %s)" % (
-                r["name"], r["shape"][0], r["shape"][1],
+            "name": "gather_gemv_scatter %s kernel (%s, %d x %d, %s)" % (
+                r["kernel"], r["name"], r["shape"][0], r["shape"][1],
                 "masked" if r["masked"] else "bare"),
             "route": "cuda", "source": src,
             "replaces": PALLAS_GEMV if use == "K1" else XLA_LEVEL_APPLY,
@@ -751,6 +797,10 @@ def main():
             "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_dev_ms"]})
+    for kernel in KERNEL_OF_PATH.values():
+        if not any(" %s kernel " % kernel in e["name"] for e in entries):
+            raise AssertionError("the main path launched no table through "
+                                 "the %s kernel" % kernel)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -758,4 +808,6 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        raise SystemExit(__doc__)
+    main(kernels_only=bool(sys.argv[1:]))

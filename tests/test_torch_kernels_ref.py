@@ -334,38 +334,242 @@ def test_cpu_tensors_never_count_launches():
     assert op.launched == 0
 
 
+KW3 = dict(nref=1, solver_type="almg", hierarchy="uniform", gamma=1e4,
+           verbose=False)
+
+
+@pytest.fixture(scope="module")
+def cavity3d():
+    """k -> the port's small 3D cavity (ldc3d baseN=2 nref=1): [P2+FB]^3
+    (k=2: star m = 189, Schoeberl 27, nld 42) and [P1+FB]^3 (k=1: 138,
+    24, 24)."""
+    from alfi_torch.problems import ThreeDimLidDrivenCavityProblem
+
+    torch.set_num_threads(1)
+    return {k: TorchSolver(ThreeDimLidDrivenCavityProblem(2), k=k,
+                           device="cpu", **KW3) for k in (2, 1)}
+
+
+def _k1_table(solver, kind):
+    if kind == "smoother":
+        return solver.vmg.patchsets[0], solver.vmg.patch_solvers[0][1]
+    ts = solver.vmg.schoeberl[0]
+    return ts.patchset, ts.papply
+
+
+def _live_entries(op):
+    """Entries of A the function needs, block by block: (rows that feed
+    a live output dof) x (columns that gather a live dof)."""
+    nb, m, _ = op.ashape
+    rows = np.zeros(nb * m, dtype=bool)
+    rows[op.slots.numpy()] = True
+    cols = op.gidx.numpy() >= 0
+    return int((rows.reshape(nb, m).sum(1) * cols.sum(1)).sum())
+
+
+@pytest.mark.parametrize("kind", ["smoother", "schoeberl"])
+@pytest.mark.parametrize("k, ms", [(2, (189, 27)), (1, (138, 24))])
+def test_live_extent_is_the_patch_size_on_3d_tables(cavity3d, k, ms, kind):
+    """The K1 tables pad trailing, so a block's live extent is its patch's
+    size; the star tables are ragged (most patches are smaller than m)."""
+    ps, op = _k1_table(cavity3d[k], kind)
+    assert op.m == ms[kind == "schoeberl"]
+    np.testing.assert_array_equal(op.ncols.numpy(), ps.sizes)
+    assert ps.sizes.max() == op.m
+    if kind == "smoother":
+        assert np.median(ps.sizes) < op.m
+
+
+def test_live_extent_with_interleaved_masked_columns():
+    """K2: in-masked columns lie between live ones.  The extent is the
+    last live column + 1, a masked column before it stays -1 in the
+    gather table, and a block that gathers nothing has extent 0."""
+    idx = np.array([[0, 1, 2, 3], [4, 1, 5, 0], [1, 1, 7, 1], [2, 3, 4, 5]])
+    mask = np.array([1.0, 0.0, 1.0, 1.0, 1.0, 0.0])  # dofs 1 and 5 masked
+    op = kernels.GatherGemvScatter(idx, 6, "K2", in_mask=mask, out_mask=mask,
+                                   device="cpu")
+    np.testing.assert_array_equal(op.ncols.numpy(), [4, 4, 0, 3])
+    np.testing.assert_array_equal(op.gidx.numpy()[1], [4, -1, -1, 0])
+    np.testing.assert_array_equal(kernels.live_extents(op.gidx.numpy()),
+                                  op.ncols.numpy())
+
+
+@pytest.mark.parametrize("kind", ["smoother", "schoeberl"])
+@pytest.mark.parametrize("k", [2, 1])
+def test_strided_kernel_loads_what_the_bound_counts_on_k1(cavity3d, k, kind):
+    """On a K1 table the strided kernel loads exactly the A entries that
+    chip_smoke's bound counts (the pair kernel, where it applies, loads
+    whole rows)."""
+    cs = _chip_smoke()
+    ps, op = _k1_table(cavity3d[k], kind)
+    loaded, live = op.a_bytes(2)
+    assert live == 8 * _live_entries(op) == 8 * int((ps.sizes ** 2).sum())
+    assert loaded == live == cs._bound_bytes(op)["A"]
+    padded = 8 * op.m * int(ps.sizes.sum())  # whole rows of live dofs
+    assert loaded < padded if kind == "smoother" else loaded <= padded
+    if op.m % 2 == 0 and op.m <= kernels.PAIR_MAX_M:
+        assert op.a_bytes(1)[0] == 8 * op.m * int(ps.sizes.sum())
+    assert op.a_bytes()[0] == op.a_bytes(op.kernel_path())[0]
+
+
+@pytest.mark.parametrize("k", [2, 1])
+def test_strided_kernel_loads_at_least_the_bound_on_k2(cavity3d, k):
+    """K2: masked columns before the live extent are loaded (and read 0),
+    so the bytes loaded are at least the bound's, for either kernel."""
+    cs = _chip_smoke()
+    op = cavity3d[k].vmg.levels[1].matvec
+    assert op.in_keep is not None
+    live = cs._bound_bytes(op)["A"]
+    assert live == 8 * _live_entries(op)
+    strided, pair = op.a_bytes(2), op.a_bytes(1)
+    assert strided[1] == pair[1] == live
+    assert live < strided[0] <= pair[0]
+
+
+def _emulate_strided_kernel(op, A, x, p=None):
+    """The strided kernel in numpy, as the source documents it: per dof
+    the rows of its CSR list in list order; of a row the columns below
+    the block's live extent, lane t of the table's G lanes adding its
+    columns t, t + G, ... in ascending order to one partial across the
+    rows; the lanes added by the xor butterfly; a dof whose out-mask is 0
+    takes the passthrough.  Reads nothing else of A."""
+    nb, m, _ = op.ashape
+    gidx = op.gidx.numpy()
+    offsets, slots = op.offsets.numpy(), op.slots.numpy()
+    slot_cols = op.slot_cols.numpy()
+    keep = None if op.out_keep is None else op.out_keep.numpy()
+    G = 1 << op.lanes_log2
+    rows = A.reshape(nb * m, m)
+    out = np.zeros(op.n)
+    for k in range(op.n):
+        part = np.zeros(G)
+        for q in range(offsets[k], offsets[k + 1]):
+            s, nc = slots[q], slot_cols[q]
+            g = gidx[s // m, :nc]
+            xs = np.where(g >= 0, x[np.maximum(g, 0)], 0.0)
+            row = rows[s, :nc]
+            for j in range(nc):
+                part[j % G] += row[j] * xs[j]
+        o = G >> 1
+        while o:
+            part = part + part[np.arange(G) ^ o]
+            o >>= 1
+        out[k] = part[0] if keep is None or keep[k] else p[k]
+    return out
+
+
+def _ragged_table(rng, nb, m, n):
+    """(idx, sizes): block b holds sizes[b] distinct dofs of [0, n), then
+    trailing pads (n); the sizes run from 0 to m."""
+    sizes = rng.integers(0, m + 1, size=nb)
+    sizes[:2] = (0, m)
+    idx = np.full((nb, m), n)
+    for b in range(nb):
+        idx[b, :sizes[b]] = np.sort(rng.choice(n, sizes[b], replace=False))
+    return idx, sizes
+
+
+@pytest.mark.parametrize("masks", ["none", "in_out"])
+@pytest.mark.parametrize("m", [1, 24, 27, 42, 65, 138, 189])
+def test_strided_kernel_reading_rule_equals_plain(m, masks):
+    """The strided kernel's reading rule (emulated in numpy from the host
+    tables) gives the plain version's result on a ragged table that has a
+    block of size 0 and a full one, bare and masked, with NaN wherever the
+    rule must not read: the pad columns and pad rows of A."""
+    rng = np.random.default_rng(300 + m)
+    nb, n = 5, 2 * m + 5
+    idx, sizes = _ragged_table(rng, nb, m, n)
+    A = rng.standard_normal((nb, m, m))
+    x, p = rng.standard_normal(n), rng.standard_normal(n)
+    mask = (rng.random(n) < 0.7).astype(float) if masks == "in_out" else None
+    op = kernels.GatherGemvScatter(idx, n, "K1", in_mask=mask, out_mask=mask,
+                                   device="cpu")
+    if mask is None:
+        np.testing.assert_array_equal(op.ncols.numpy(), sizes)
+    ref = op.plain(torch.as_tensor(A), torch.as_tensor(x),
+                   None if mask is None else torch.as_tensor(p)).numpy()
+    pad = np.arange(m)[None, :] >= op.ncols.numpy()[:, None]
+    A_nan = A.copy()
+    A_nan[np.broadcast_to(pad[:, None, :], A.shape)] = np.nan
+    pad_rows = np.arange(m)[None, :] >= sizes[:, None]
+    A_nan[np.broadcast_to(pad_rows[:, :, None], A.shape)] = np.nan
+    out = _emulate_strided_kernel(op, A_nan, x, p)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-13, atol=1e-13)
+    loaded, live = op.a_bytes(2)
+    assert loaded >= live and (mask is not None or loaded == live)
+
+
+@pytest.mark.parametrize("extents, lanes", [
+    ([], 4), ([1, 1, 1], 4), ([27] * 10, 4), ([24] * 10, 4),
+    ([42] * 10, 8), ([64] * 10, 8), ([65] * 10, 16), ([128] * 10, 16),
+    ([189] * 10, 32), ([1590] * 3, 32),
+    ([3] * 30 + [189] * 70, 32), ([60] * 80 + [201] * 20, 8)])
+def test_strided_lanes_fit_the_rows(extents, lanes):
+    """The lanes per dof take the 75 % row in two batches of
+    STRIDED_STEPS steps: a few long rows do not widen the group of a
+    table of short ones."""
+    assert kernels.STRIDED_STEPS == 4 and kernels.LANES_QUANTILE == 0.75
+    assert 1 << kernels.strided_lanes_log2(np.array(extents)) == lanes
+
+
+def test_dispatch_constants_equal_the_source():
+    """The wrapper mirrors two constants of the CUDA source."""
+    import re
+
+    with open(kernels.SOURCE) as f:
+        src = f.read()
+    for name, value in (("kMaxM", kernels.PAIR_MAX_M),
+                        ("kSteps", kernels.STRIDED_STEPS)):
+        found = re.search(r"constexpr int %s = (\d+);" % name, src)
+        assert found and int(found.group(1)) == value, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4225, 14), (2048, 6), (8192, 12),
                                    (300, 64), (500, 2), (3000, 42),
                                    (1000, 24), (2000, 27), (300, 138),
                                    (300, 189), (200, 65), (900, 1),
-                                   (40, 301)])
+                                   (40, 301), (2000, 27, "ragged"),
+                                   (3000, 42, "ragged"),
+                                   (300, 189, "ragged"),
+                                   (300, 201, "ragged")])
 def test_cuda_kernels_match_plain(shape):
     """The fused kernel against its plain version on the card, masked
-    (in and out, with passthrough) and unmasked; bitwise equal across
-    two launches; one launch counted per call."""
+    (in and out, with passthrough) and unmasked, on full tables (random
+    dofs, repeats included) and ragged ones (block sizes 0 .. m from the
+    seed, trailing pads), through every kernel that takes the table;
+    bitwise equal across two launches; one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    nb, m = shape
+    nb, m = shape[:2]
     n = nb * m // 3
     rng = np.random.default_rng(0)
-    idx = rng.integers(0, n + 1, size=(nb, m))  # n is the pad
+    if len(shape) == 3:
+        idx, _ = _ragged_table(rng, nb, m, n)
+    else:
+        idx = rng.integers(0, n + 1, size=(nb, m))  # n is the pad
     mask = (rng.random(n) < 0.8).astype(float)
     A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
     x = torch.as_tensor(rng.standard_normal(n), device=dev)
     p = torch.as_tensor(rng.standard_normal(n), device=dev)
+    paths = (0, 1, 2) if m % 2 == 0 and m <= kernels.PAIR_MAX_M else (0,)
     for masks, args in (({}, ()),
                         ({"in_mask": mask, "out_mask": mask}, (p,))):
         op = kernels.GatherGemvScatter(idx, n, "K1", device=dev, **masks)
-        before = kernels.GatherGemvScatter.launches["K1"]
-        yk, yk2, yp = op(A, x, *args), op(A, x, *args), op.plain(A, x, *args)
-        torch.cuda.synchronize()
-        assert kernels.GatherGemvScatter.launches["K1"] == before + 2
-        assert op.launched == 2
-        assert torch.equal(yk, yk2)
-        err = float((yk - yp).abs().max() / yp.abs().max())
-        assert err <= 1e-13
+        yp = op.plain(A, x, *args)
+        for path in paths:
+            op.path = path
+            before = kernels.GatherGemvScatter.launches["K1"]
+            mine = op.launched
+            yk, yk2 = op(A, x, *args), op(A, x, *args)
+            torch.cuda.synchronize()
+            assert kernels.GatherGemvScatter.launches["K1"] == before + 2
+            assert op.launched == mine + 2
+            assert torch.equal(yk, yk2)
+            err = float((yk - yp).abs().max() / yp.abs().max())
+            assert err <= 1e-13
         with pytest.raises(ValueError):
             op(A[:-1], x, *args)
 
