@@ -17,5 +17,9 @@ from .mesh.hierarchy import MeshHierarchy, mesh_hierarchy  # noqa: E402
 from .mg.patches import star_patches  # noqa: E402
 from .mg.schoeberl import SchoeberlTransfer  # noqa: E402
 from .problem import NavierStokesProblem  # noqa: E402
-from .solver import ConstantPressureSolver, NavierStokesSolver  # noqa: E402
+from .solver import (  # noqa: E402
+    ConstantPressureSolver,
+    NavierStokesSolver,
+    ScottVogeliusSolver,
+)
 from .driver import get_default_parser, get_solver, run_solver  # noqa: E402

@@ -25,7 +25,7 @@ from .interop import (
     save_checkpoint,
     state_from_numpy,
 )
-from .solver import BLUE, GREEN, ConstantPressureSolver
+from .solver import BLUE, GREEN, ConstantPressureSolver, ScottVogeliusSolver
 from .utils.events import EVENTS
 
 
@@ -71,40 +71,32 @@ def get_default_parser():
     return parser
 
 
-def _unported(args):
-    """(what, ROADMAP.md Queue 1 item) for the first choice in ``args``
-    the port does not have yet and the solver does not reject itself
-    (solver type, hierarchy, Burman), else None."""
-    checks = [
-        (args.discretisation == "sv", "--discretisation sv", 9),
-        (args.patch != "star", "--patch %s" % args.patch, 9),
-        (args.patch_composition != "additive",
-         "--patch-composition %s" % args.patch_composition, 10),
-        (args.nref_vis > 0, "--nref-vis > 0 (visprolong)", 10),
-        (args.mkl, "--mkl", 10),
-        (args.ndevices > 1, "--ndevices > 1", 12),
-        (args.rebalance, "--rebalance", 12),
-    ]
-    return next(((what, item) for bad, what, item in checks if bad), None)
-
-
 def get_solver(args, problem, hierarchy_callback=None, *, device="cuda"):
-    found = _unported(args)
-    if found is not None:
+    """The solver of ``args`` (the solver itself rejects what the port
+    has not ported yet, naming its ROADMAP.md item); --mkl is accepted
+    and unused, as in the JAX package."""
+    if args.ndevices > 1:
         raise NotImplementedError(
-            "%s is not ported yet: ROADMAP.md Queue 1 item %d" % found)
-    return ConstantPressureSolver(
+            "--ndevices > 1 is not ported yet: ROADMAP.md Queue 1 item 12")
+    solver_t = {"pkp0": ConstantPressureSolver,
+                "sv": ScottVogeliusSolver}[args.discretisation]
+    return solver_t(
         problem,
         solver_type=args.solver_type,
         stabilisation_type=args.stabilisation_type,
         nref=args.nref,
         k=args.k,
         gamma=args.gamma,
+        nref_vis=args.nref_vis,
+        patch=args.patch,
+        use_mkl=args.mkl,
         supg_method="shakib",
         stabilisation_weight=args.stabilisation_weight,
         hierarchy=args.mh,
+        patch_composition=args.patch_composition,
         restriction=args.restriction,
         smoothing=args.smoothing,
+        rebalance_vertices=args.rebalance,
         high_accuracy=args.high_accuracy,
         hierarchy_callback=hierarchy_callback,
         device=device,

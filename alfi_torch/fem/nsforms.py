@@ -5,9 +5,11 @@ Hand-derived element kernels for the reference's fixed form set:
 * ``pkp0`` residual (alfi/solver.py:562-572):
       nu (2 sym grad u, grad v) + gamma (cell_avg(div u), div v)
       + advect ((grad u) u, v) - (p, div v) - (div u, q)
+* ``sv`` residual (alfi/solver.py:613-623): the same with the exact
+  gamma (div u, div v) term,
 
-(the ``sv`` form with the exact grad-div term is a later slice), plus
-the optional ``stabilisation`` hook (SUPG/GLS, alfi_torch/stabilisation.py).
+plus the optional ``stabilisation`` hook (SUPG/GLS or Burman,
+alfi_torch/stabilisation.py).
 
 Every per-cell quantity is one einsum over a leading cell axis (the JAX
 package vmaps a single-cell kernel instead), and assembly is an
@@ -45,15 +47,14 @@ class Tabulation:
 class NSForm:
     """Residual of the AL Navier-Stokes system for one (V, Q) pair.
 
-    graddiv_mode: 'cell_avg' (Pk-P0); the Scott-Vogelius 'exact' mode and
-    forcing (``rhs``, the MMS problems) are not ported yet.
+    graddiv_mode: 'cell_avg' (Pk-P0) or 'exact' (Scott-Vogelius); forcing
+    (``rhs``, the MMS problems) is not ported yet.
     """
 
     def __init__(self, V, Q, graddiv_mode, quad_degree=None, rhs=None, *,
                  device):
-        if graddiv_mode != "cell_avg":
-            raise NotImplementedError(
-                "graddiv_mode %r is not ported yet" % graddiv_mode)
+        if graddiv_mode not in ("cell_avg", "exact"):
+            raise ValueError("graddiv_mode %r" % graddiv_mode)
         if rhs is not None:
             raise NotImplementedError("forcing terms are not ported yet")
         self.V = V
@@ -109,10 +110,14 @@ class NSForm:
         S = gu + gu.transpose(-1, -2)
         rv = nu * torch.einsum("cq,cqij,cqlj->cli", wdet, S, gtest)
         divu = torch.diagonal(gu, dim1=-2, dim2=-1).sum(-1)  # (nc, nq)
-        int_div_test = torch.einsum("cq,cqld->cld", wdet, gtest)
-        int_divu = torch.einsum("cq,cq->c", wdet, divu)
-        rv = rv + gamma * (int_divu / self.geom.vol)[:, None, None] \
-            * int_div_test
+        if self.graddiv_mode == "cell_avg":
+            int_div_test = torch.einsum("cq,cqld->cld", wdet, gtest)
+            int_divu = torch.einsum("cq,cq->c", wdet, divu)
+            rv = rv + gamma * (int_divu / self.geom.vol)[:, None, None] \
+                * int_div_test
+        else:
+            rv = rv + gamma * torch.einsum("cq,cq,cqld->cld", wdet, divu,
+                                           gtest)
         w_q = torch.einsum("ql,cld->cqd", self.tab_v.phi, wind_loc)
         conv = torch.einsum("cqij,cqj->cqi", gu, w_q)
         rv = rv + advect * torch.einsum("cq,cqi,ql->cli", wdet, conv,
@@ -206,14 +211,27 @@ class NSForm:
     # gamma-split structure: per-cell factors of the grad-div term
     # ------------------------------------------------------------------
     def graddiv_factors(self):
-        """Static per-cell rank-1 factors Bt (nc, nloc_v*d, 1) with
-        G_cell = Bt @ Bt.T = the unit-gamma cell_avg grad-div element
-        matrix."""
+        """Static per-cell factors Bt (nc, nloc_v*d, q) with
+        G_cell = Bt @ Bt.T = the unit-gamma grad-div element matrix:
+        q = 1 for cell_avg; for exact, q = the points of a degree
+        2(k-1) rule, which integrates div u div v exactly."""
         if self._gd_factors is None:
             nld = self.tab_v.nloc * self.dim
-            g = torch.einsum("cq,cqld->cld", self.wdet, self.gtest)
-            self._gd_factors = (g / torch.sqrt(self.geom.vol)[:, None, None]
-                                ).reshape(-1, nld, 1)
+            if self.graddiv_mode == "cell_avg":
+                g = torch.einsum("cq,cqld->cld", self.wdet, self.gtest)
+                self._gd_factors = (
+                    g / torch.sqrt(self.geom.vol)[:, None, None]
+                ).reshape(-1, nld, 1)
+            else:
+                deg = max(2 * (self.V.element.degree - 1), 0)
+                tab = Tabulation(self.V.element, self.dim, deg,
+                                 device=self.device)
+                gtest = torch.einsum("qle,cej->cqlj", tab.gphi,
+                                     self.geom.jinv)
+                # div of basis (l, i) at point q is gtest[c, q, l, i]
+                sq = torch.sqrt(tab.w[None, :] * self.geom.detj[:, None])
+                self._gd_factors = torch.einsum(
+                    "cqld,cq->cldq", gtest, sq).reshape(-1, nld, tab.nq)
         return self._gd_factors
 
     # ------------------------------------------------------------------

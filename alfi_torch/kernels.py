@@ -14,6 +14,9 @@ table, and 0/1 masks fixed per table (no out_mask: out is the sum).
   explicit patch inverses, the table is ``PatchSet.dofs``.
 * K2, the level matvec: A_b are the per-cell element tensors, the table
   is ``MGLevel.rows``.
+* KF, the Burman facet term of the level matvec (Scott-Vogelius): A_b are
+  the per-interior-facet Jacobians, the table is the facet rows (both
+  cells' dofs, 2 x nld); it adds into K2's output (``out=``).
 
 :class:`GatherGemvScatter` binds one table and its masks to the fused
 kernel ``csrc/gather_gemv_scatter.cu`` (one launch per apply; its header
@@ -108,7 +111,7 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.alfi_gather_gemv_scatter.restype = ci
     lib.alfi_gather_gemv_scatter.argtypes = ([vp] * 8 + [ci] * 4
-                                             + [vp, vp, ci])
+                                             + [vp, vp, ci, ci])
     _lib = lib
     return lib
 
@@ -168,9 +171,12 @@ class GatherGemvScatter:
     + (1 - out_mask) * passthrough, for one fixed index table.
 
     idx (nb, m) host table of positions in x (pads outside [0, n));
-    ``use`` tags the launches ("K1" patch apply, "K2" level matvec);
-    ``in_mask`` / ``out_mask``: optional 0/1 masks of n values, fixed
-    here.  With an out_mask every call passes ``passthrough`` (n,).
+    ``use`` tags the launches ("K1" patch apply, "K2" level matvec, "KF"
+    Burman facet term); ``in_mask`` / ``out_mask``: optional 0/1 masks of
+    n values, fixed here.  With an out_mask every call passes
+    ``passthrough`` (n,), unless it passes ``out`` (n,): then the sum is
+    added into ``out`` in place where out_mask is 1 (everywhere without
+    one), and ``out`` is returned.
     The device is the table's: A, x and passthrough must lie on it.  On
     a CUDA device the kernel takes any m >= 1 (``path`` 0: the pair
     kernel for an even m <= PAIR_MAX_M and a 16-byte-aligned A, else the
@@ -178,7 +184,7 @@ class GatherGemvScatter:
     measurements)."""
 
     #: kernel launches per use since the last reset_launch_counts()
-    launches = {"K1": 0, "K2": 0}
+    launches = {"K1": 0, "K2": 0, "KF": 0}
     #: every live table, so that reset_launch_counts() reaches its count
     _tables_alive = weakref.WeakSet()
 
@@ -250,8 +256,14 @@ class GatherGemvScatter:
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
 
-    def __call__(self, A, x, passthrough=None):
-        if (passthrough is None) != (self.out_keep is None):
+    def __call__(self, A, x, passthrough=None, *, out=None):
+        if out is not None:
+            if passthrough is not None:
+                raise ValueError("out= takes no passthrough")
+            self._check(out, "out", (self.n,))
+            if out.data_ptr() == x.data_ptr():
+                raise ValueError("out must not be x")
+        elif (passthrough is None) != (self.out_keep is None):
             raise ValueError("passthrough is required exactly when the "
                              "table has an out_mask")
         self._check(A, "A", self.ashape)
@@ -259,21 +271,24 @@ class GatherGemvScatter:
         if passthrough is not None:
             self._check(passthrough, "passthrough", (self.n,))
         if self._launch is None:
-            return self.plain(A, x, passthrough)
+            return self.plain(A, x, passthrough, out=out)
         a_ptr = A.data_ptr()
         if self.path == 1 and (a_ptr % 16 or self.m % 2
                                or self.m > PAIR_MAX_M):
             raise ValueError("the pair kernel takes an even m <= %d and a "
                              "16-byte-aligned A, got m=%d"
                              % (PAIR_MAX_M, self.m))
-        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
+        accumulate = out is not None
+        if not accumulate:
+            out = torch.empty((self.n,), dtype=torch.float64,
+                              device=self.device)
         gidx, offsets, slots, out_mask, slot_cols = self._tables
         err = self._launch(
             a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
             None if passthrough is None else passthrough.data_ptr(),
             out.data_ptr(), self.n, self.m, self.path, self.device.index,
             torch._C._cuda_getCurrentRawStream(self.device.index),
-            slot_cols, self.lanes_log2)
+            slot_cols, self.lanes_log2, int(accumulate))
         if err != 0:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
@@ -301,9 +316,9 @@ class GatherGemvScatter:
             return 8 * self.m * int(block.numel()), 8 * live
         return 8 * int(self.slot_cols.sum()), 8 * live
 
-    def plain(self, A, x, passthrough=None):
+    def plain(self, A, x, passthrough=None, *, out=None):
         """The same operation in plain PyTorch (torch.where masks, an
-        einsum and index_add), on any device."""
+        einsum and index_add), on any device; ``out`` as in __call__."""
         n = self.n
         if self.in_keep is not None:
             x = torch.where(self.in_keep, x, 0.0)
@@ -311,6 +326,10 @@ class GatherGemvScatter:
         Y = torch.einsum("bij,bj->bi", A, xin)
         acc = x.new_zeros(n + 1).index_add_(0, self.pidx.reshape(-1),
                                             Y.reshape(-1))[:n]
+        if out is not None:
+            if self.out_keep is None:
+                return out.add_(acc)
+            return out.copy_(torch.where(self.out_keep, out + acc, out))
         if self.out_keep is None:
             return acc
         return torch.where(self.out_keep, acc, passthrough)

@@ -7,19 +7,21 @@ additive star patch smoother, with Schoeberl prolongation and a dense LU
 on the coarse grid.
 
 Everything per-Newton-step (coarse winds by injection, per-cell element
-tensors, patch inverses, coarse LU) is rebuilt by :meth:`VelocityMG.setup`
-from (params, fine wind, fine pressure); the topology (patches,
-transfers, dof maps) is static host data turned into device tables once.
-The level matvec runs kernel K2 and the patch smoother kernel K1
+tensors, per-facet Burman tensors, patch inverses, coarse LU) is rebuilt
+by :meth:`VelocityMG.setup` from (params, fine wind, fine pressure); the
+topology (patches, transfers, dof maps) is static host data turned into
+device tables once.  The level matvec runs kernel K2 (and KF for the
+Burman facet term) and the patch smoother kernel K1
 (alfi_torch/kernels.py).
 
-This slice ports the uniform-hierarchy choices of the flagship solve:
-star patches, additive composition, Schoeberl transfers, FMG cycle,
-dense coarse LU, and SUPG/GLS terms in the level and patch operators.
+Ported choices: star and macrostar patches, additive composition,
+Schoeberl transfers, FMG cycle, dense coarse LU, SUPG/GLS terms in the
+level and patch operators, and Burman's facet terms there (SV).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fem import (
@@ -31,12 +33,16 @@ from ..fem import (
     dg_lagrange,
 )
 from ..kernels import GatherGemvScatter
-from ..solvers.batched_lu import coarse_factor, coarse_solve
+from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
-from ..stabilisation import make_stabilisation
+from ..stabilisation import BurmanStabilisation, make_stabilisation
 from .patches import (
+    FacetPatchTables,
+    assemble_patch_matrices,
     build_patch_solver,
+    contract_patch_facet_tensors,
+    macrostar_patches,
     make_patch_factor_parts,
     patch_static_operators,
     star_patches,
@@ -73,7 +79,7 @@ class MGLevel:
 class VelocityMG:
     """Geometric MG hierarchy for the velocity block of one solver
     (supplies hierarchy, element, problem BCs, graddiv mode, smoothing
-    count, device)."""
+    count, patch kind, device)."""
 
     def __init__(self, solver):
         mh = solver.mh
@@ -127,9 +133,11 @@ class VelocityMG:
         self.patch_solvers = []
         self.patchsets = []
         self.factor_parts = []
+        patches = (macrostar_patches if solver.patch == "macro"
+                   else star_patches)
         for l in range(1, self.nlevels):
             lev = self.levels[l]
-            ps = star_patches(lev.V, lev.mask_flat.cpu().numpy())
+            ps = patches(lev.V, lev.mask_flat.cpu().numpy())
             self.patchsets.append(ps)
             self.patch_solvers.append(build_patch_solver(
                 ps, out_mask=lev.mask_flat, device=self.device))
@@ -144,10 +152,13 @@ class VelocityMG:
         # wind injected to every level, alfi/stabilisation.py:29-43);
         # without these terms the preconditioner departs from the true
         # Jacobian as Re grows.  One stabilisation per level, on that
-        # level's form; the fine level's is the solver's.
+        # level's form; the fine level's is the solver's.  Only for a P0
+        # pressure, whose injection is the mean of the children.
         self.stab = None
         st = solver.stabilisation
-        if st is not None:
+        if (st is not None and st.has_velocity_tensors
+                and all(lev.form.Q.element.degree == 0
+                        for lev in self.levels)):
             self.stab = [
                 make_stabilisation(
                     self.levels[l].form, solver.stabilisation_type,
@@ -162,16 +173,55 @@ class VelocityMG:
                 for l in range(self.nlevels - 1)
             ]
 
+        # Burman's facet coupling in the level operators and patch
+        # matrices (the reference assembles the full stabilised Jacobian,
+        # dS jump term included, into PCMG/PCPatch): one stabilisation
+        # per level, the fine level's the solver's; a KF table per level
+        # on the facet rows (both cells' dofs); per patch set the facet
+        # tables of the contraction.  The patch matrices are then
+        # assembled per Newton step from the whole tensors, so the static
+        # K and G patch contractions are not kept.
+        self.stab_facet = None
+        if st is not None and st.has_facet_tensors:
+            self.stab_facet = [
+                (st.impl if l == self.nlevels - 1 else
+                 BurmanStabilisation(self.levels[l].form,
+                                     weight=st.impl.weight))
+                for l in range(self.nlevels)
+            ]
+            self.facet_rows, self.facet_matvecs = [], []
+            for l, lev in enumerate(self.levels):
+                fc = self.stab_facet[l].facets.cells
+                rows = lev.rows.cpu().numpy()
+                frows = np.concatenate([rows[fc[:, 0]], rows[fc[:, 1]]],
+                                       axis=1)
+                self.facet_rows.append(frows)
+                self.facet_matvecs.append(GatherGemvScatter(
+                    frows, lev.V.ndof * d, "KF", in_mask=lev.mask_flat,
+                    out_mask=lev.mask_flat, device=self.device))
+            self.patch_facet_tabs = [
+                FacetPatchTables(self.patchsets[l - 1],
+                                 self.stab_facet[l].facets,
+                                 self.levels[l].V)
+                for l in range(1, self.nlevels)
+            ]
+            self.factor_parts = [None] * len(self.factor_parts)
+
     # ------------------------------------------------------------------
     # per-level masked operator from element tensors
     # ------------------------------------------------------------------
-    def level_apply(self, l, tensors, v):
+    def level_apply(self, l, tensors, v, ftensors=None):
         """A_l v on (ndof, d) tensors with eliminated BCs:
         mask * sum_c R_c^T T_c R_c (mask * v) + (1 - mask) * v, in one
-        call of kernel K2."""
+        call of kernel K2; ``ftensors`` adds the interior-facet (Burman)
+        part, mask * sum_f R_f^T F_f R_f (mask * v), by a second launch,
+        of kernel KF, that adds into K2's output."""
         lev = self.levels[l]
         v0 = v.reshape(-1)
-        return lev.matvec(tensors, v0, v0).reshape(lev.V.ndof, self.d)
+        out = lev.matvec(tensors, v0, v0)
+        if ftensors is not None:
+            out = self.facet_matvecs[l](ftensors, v0, out=out)
+        return out.reshape(lev.V.ndof, self.d)
 
     # ------------------------------------------------------------------
     def transfer_setup(self, params, statics):
@@ -186,8 +236,9 @@ class VelocityMG:
         """One-time static patch operators (smoother levels + Schoeberl
         transfers)."""
         levels = [
-            patch_static_operators(self.patchsets[l - 1],
-                                   self.levels[l].form)
+            (patch_static_operators(self.patchsets[l - 1],
+                                    self.levels[l].form)
+             if self.factor_parts[l - 1] is not None else None)
             for l in range(1, self.nlevels)
         ]
         schoeberl = [t.static_ops() for t in self.schoeberl]
@@ -230,15 +281,42 @@ class VelocityMG:
             M_el = params["nu"] * K_el + params["advect"] * N_el
             tensors.append(M_el + params["gamma"] * G_el)
             N_els.append(N_el)
-        patch_lufacs = [
-            self.factor_parts[l - 1](static["levels"][l - 1], N_els[l],
-                                     params)
-            for l in range(1, self.nlevels)
-        ]
+        ftensors = [None] * self.nlevels
+        frows0 = None
+        if self.stab_facet is not None:
+            # per-level Burman facet Jacobians at the injected winds,
+            # advect-scaled like the cell stabilisation terms; the patch
+            # matrices from the whole cell tensors plus the facet terms
+            ftensors = [
+                (params["advect"]
+                 * self.stab_facet[l].facet_velocity_tensors(winds[l],
+                                                             params)
+                 ).contiguous()
+                for l in range(self.nlevels)
+            ]
+            frows0 = self.facet_rows[0]
+            patch_lufacs = [
+                patch_inverses(
+                    assemble_patch_matrices(self.patchsets[l - 1],
+                                            tensors[l])
+                    + contract_patch_facet_tensors(
+                        self.patch_facet_tabs[l - 1], ftensors[l])
+                ).contiguous()
+                for l in range(1, self.nlevels)
+            ]
+        else:
+            patch_lufacs = [
+                self.factor_parts[l - 1](static["levels"][l - 1],
+                                         N_els[l], params)
+                for l in range(1, self.nlevels)
+            ]
         lev0 = self.levels[0]
-        A0 = assemble_dense_from_tensors(lev0.form, tensors[0], lev0.mask_u)
+        A0 = assemble_dense_from_tensors(lev0.form, tensors[0], lev0.mask_u,
+                                         facet_tensors=ftensors[0],
+                                         facet_rows=frows0)
         return {
             "tensors": tensors,
+            "ftensors": ftensors,
             "patch_lufacs": patch_lufacs,
             "coarse_fac": coarse_factor(A0),
             "schoeberl": schoeberl_state,
@@ -268,9 +346,10 @@ class VelocityMG:
         (ksp_convergence_test skip).  ``x0=None`` means a zero initial
         guess (the defect is then ``b`` itself)."""
         tensors = state["tensors"][l]
+        ften = state["ftensors"][l]
 
         def A(v):
-            return self.level_apply(l, tensors, v)
+            return self.level_apply(l, tensors, v, ftensors=ften)
 
         m = self.smoothing
         x, _ = fgmres(A, b, pc=self._smoother_pc(l, state), x0=x0,
@@ -299,7 +378,8 @@ class VelocityMG:
         if l == 0:
             return self._coarse_solve(state, b)
         x = self._smooth(l, state, b, x0)
-        r = b - self.level_apply(l, state["tensors"][l], x)
+        r = b - self.level_apply(l, state["tensors"][l], x,
+                                 ftensors=state["ftensors"][l])
         rc = self._restrict(l - 1, state, r)
         xc = self.vcycle(l - 1, state, rc, None)
         x = x + self._prolong(l - 1, state, xc)

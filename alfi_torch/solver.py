@@ -1,17 +1,19 @@
 """Reynolds-robust Navier-Stokes solvers (the reference's alfi/solver.py),
 ported from the JAX package's ``solver.py`` to eager PyTorch.
 
-This slice ports the flagship mode:
+The port has the flagship mode:
 
 * ``almg`` — Newton-FGMRES with the block-Schur PC; velocity block by one
   full-multigrid cycle with patch smoothers and Schoeberl transfers
   (alfi/solver.py:353-379),
 
-on ``ConstantPressureSolver`` ([Pk]^d - P0), a uniform hierarchy, star
-patches, and optional SUPG/GLS stabilisation carried through the Newton
-Jacobian and the multigrid level and patch operators.  Every tensor
-lives on ``device``: the card (``"cuda"``) unless the caller asks for
-another; nothing falls back to another device.
+on ``ConstantPressureSolver`` ([Pk]^d - P0) and ``ScottVogeliusSolver``
+([Pk]^d - DG(k-1), exact grad-div), the uniform, bary and uniformbary
+hierarchies, star and macrostar patches, and optional SUPG/GLS or
+Burman stabilisation carried through the Newton Jacobian and the
+multigrid level and patch operators.  Every tensor lives on ``device``:
+the card (``"cuda"``) unless the caller asks for another; nothing falls
+back to another device.
 """
 
 from __future__ import annotations
@@ -48,22 +50,40 @@ class NavierStokesSolver:
 
     def __init__(self, problem, nref=1, solver_type="almg",
                  stabilisation_type=None, supg_method="shakib",
-                 supg_magic=9.0, gamma=10000, k=5, hierarchy="bary",
-                 stabilisation_weight=None, restriction=False,
-                 smoothing=None, hierarchy_callback=None,
+                 supg_magic=9.0, gamma=10000, nref_vis=0, k=5,
+                 patch="star", hierarchy="bary", use_mkl=False,
+                 stabilisation_weight=None, patch_composition="additive",
+                 restriction=False, smoothing=None,
+                 rebalance_vertices=False, hierarchy_callback=None,
                  high_accuracy=False, verbose=True, *, device="cuda"):
         if solver_type != "almg":
             raise NotImplementedError(
                 "solver_type %r is not ported yet (only almg): ROADMAP.md "
                 "Queue 1 item 10" % solver_type)
-        if hierarchy != "uniform":
-            raise NotImplementedError(
-                "hierarchy %r is not ported yet (only uniform): ROADMAP.md "
-                "Queue 1 item 9" % hierarchy)
+        # each kwarg of the reference the port has not ported yet takes
+        # only the reference's default; use_mkl is accepted and unused,
+        # as in the reference
+        for bad, what, item in [
+                (patch_composition != "additive",
+                 "patch_composition %r" % patch_composition, "10d"),
+                (nref_vis != 0, "nref_vis %r (visprolong)" % nref_vis,
+                 "10h"),
+                (rebalance_vertices, "rebalance_vertices", "12")]:
+            if bad:
+                raise NotImplementedError(
+                    "%s is not ported yet: ROADMAP.md Queue 1 item %s"
+                    % (what, item))
         if stabilisation_type == "none":
             stabilisation_type = None
         if stabilisation_type not in (None, "supg", "gls", "burman"):
             raise ValueError("stabilisation_type %r" % stabilisation_type)
+        if hierarchy not in ("uniform", "bary", "uniformbary"):
+            raise ValueError("hierarchy %r" % hierarchy)
+        if patch not in ("star", "macro"):
+            raise ValueError("patch %r" % patch)
+        if hierarchy != "bary" and patch == "macro":
+            raise ValueError(
+                "macro patch only makes sense with a bary hierarchy")
         self.problem = problem
         self.nref = nref
         self.solver_type = solver_type
@@ -71,6 +91,8 @@ class NavierStokesSolver:
         self.supg_method = supg_method
         self.supg_magic = supg_magic
         self.stabilisation_weight = stabilisation_weight
+        self.patch = patch
+        self.patch_composition = patch_composition
         self.restriction = restriction
         self.hierarchy = hierarchy
         self.high_accuracy = high_accuracy
@@ -292,4 +314,19 @@ class ConstantPressureSolver(NavierStokesSolver):
 
     def make_form(self):
         return NSForm(self.Z.V, self.Z.Q, graddiv_mode="cell_avg",
+                      rhs=self.problem.rhs(), device=self.device)
+
+
+class ScottVogeliusSolver(NavierStokesSolver):
+    """[Pk]^d - DG(k-1) on barycentric meshes; exact grad-div
+    (alfi/solver.py:608-662)."""
+
+    def function_space(self, mesh, k):
+        d = mesh.dim
+        V = VectorFunctionSpace(mesh, lagrange(d, k))
+        Q = FunctionSpace(mesh, dg_lagrange(d, k - 1))
+        return MixedFunctionSpace(V, Q)
+
+    def make_form(self):
+        return NSForm(self.Z.V, self.Z.Q, graddiv_mode="exact",
                       rhs=self.problem.rhs(), device=self.device)

@@ -5,7 +5,8 @@
   once; ``jvp`` evaluates it again on every call — one extra residual
   per outer Krylov iteration);
 * dense velocity operators are assembled from per-cell element tensors
-  (the MG coarse grid), with BC rows/cols eliminated to identity.
+  and, with Burman's stabilisation, per-interior-facet tensors (the MG
+  coarse grid), with BC rows/cols eliminated to identity.
 """
 
 from __future__ import annotations
@@ -41,13 +42,23 @@ def vector_rows(space):
         cd.shape[0], -1)
 
 
-def assemble_dense_from_tensors(form, T, mask_u):
+def assemble_dense_from_tensors(form, T, mask_u, facet_tensors=None,
+                                facet_rows=None):
     """Dense (N, N) velocity operator from per-cell tensors T
-    (nc, nld, nld); BC rows/cols eliminated to identity."""
-    rows = torch.as_tensor(vector_rows(form.V), device=T.device)
+    (nc, nld, nld), optionally plus interior-facet tensors (the Burman
+    stabilised Jacobian, ``facet_tensors`` (nif, 2*nld, 2*nld) on the
+    host table ``facet_rows`` (nif, 2*nld)); BC rows/cols eliminated to
+    identity."""
     N = form.V.ndof * form.dim
-    flat = (rows[:, :, None] * N + rows[:, None, :]).reshape(-1)
+
+    def flat(rows):
+        rows = torch.as_tensor(rows, device=T.device)
+        return (rows[:, :, None] * N + rows[:, None, :]).reshape(-1)
+
     A = torch.zeros((N * N,), dtype=T.dtype, device=T.device).index_add(
-        0, flat, T.reshape(-1)).reshape(N, N)
+        0, flat(vector_rows(form.V)), T.reshape(-1))
+    if facet_tensors is not None:
+        A = A.index_add(0, flat(facet_rows), facet_tensors.reshape(-1))
+    A = A.reshape(N, N)
     m = mask_u.reshape(-1)
     return m[:, None] * A * m[None, :] + torch.diag(1.0 - m)

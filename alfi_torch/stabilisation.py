@@ -1,5 +1,6 @@
-"""Advection stabilisation for [Pk]^d-P0: SUPG and GLS, ported from the
-JAX package's ``stabilisation.py`` (its cell-based part).
+"""Advection stabilisation, ported from the JAX package's
+``stabilisation.py``: SUPG and GLS (cell terms, [Pk]^d-P0) and Burman's
+interior-penalty jump term (facet terms, the Scott-Vogelius protocol).
 
 Semantics, as in the reference (alfi/stabilisation.py, wired in
 alfi/solver.py:202-237):
@@ -18,8 +19,9 @@ alfi/solver.py:202-237):
 The hook returns a full (Rv, Rq) contribution (GLS touches the pressure
 rows through grad q).  ``velocity_element_tensors`` gives the per-cell
 velocity-block Jacobian of the same residual for the multigrid level and
-patch operators.  Forcing terms are not ported (``NSForm`` rejects
-``rhs``), nor is Burman's facet stabilisation (Scott-Vogelius).
+patch operators; :class:`BurmanStabilisation` gives per-interior-facet
+Jacobians instead.  Forcing terms are not ported (``NSForm`` rejects
+``rhs``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .config import real_dtype
+from .fem.facets import InteriorFacets
 
 
 class ShakibSUPG:
@@ -341,6 +344,125 @@ class TurekSUPG(ShakibSUPG):
         return beta * torch.ones_like(unorm)
 
 
+class BurmanStabilisation:
+    """Interior-penalty jump stabilisation (alfi/stabilisation.py:139-162):
+
+        sum_F 0.5 weight h_F^2 beta_F int_F [grad u . n] . [grad v . n]
+
+    with beta_F the facet average of sqrt(|u|^2 + 1e-10) on the LIVE
+    state (so it enters the Newton Jacobian), h_F the facet measure in
+    2D and its square root in 3D.  The facet sums are out-of-place
+    ``index_add`` so that ``torch.func.jvp`` passes through."""
+
+    def __init__(self, form, weight=None):
+        self.form = form
+        self.weight = weight if weight is not None else 3e-3
+        self.facets = InteriorFacets(form.V, 2 * form.V.element.degree,
+                                     device=form.device)
+        cd = form.V.cell_dofs
+        fc = self.facets.cells
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=form.device)
+
+        #: (nif, nloc) scalar dofs of each side's cell
+        self.dofs0, self.dofs1 = dev(cd[fc[:, 0]]), dev(cd[fc[:, 1]])
+        self._fstat = None
+
+    def facet_statics(self):
+        """Per-facet static tensors: side tabulations, physical gradients,
+        normals and the state-independent coefficient."""
+        if self._fstat is None:
+            fa = self.facets
+            dev = self.form.device
+            jinv = self.form.geom.jinv
+            c0, c1 = (torch.as_tensor(fa.cells[:, s], device=dev)
+                      for s in (0, 1))
+            k0, k1 = (torch.as_tensor(fa.config[:, s], device=dev)
+                      for s in (0, 1))
+            self._fstat = dict(
+                t0=fa.tab[k0], t1=fa.tab[k1],
+                g0=torch.einsum("fqle,fej->fqlj", fa.gtab[k0], jinv[c0]),
+                g1=torch.einsum("fqle,fej->fqlj", fa.gtab[k1], jinv[c1]),
+                n=fa.normal,
+                coefc=0.5 * self.weight * fa.harea ** 2 * fa.scale,
+            )
+        return self._fstat
+
+    def residual_pairs(self, u0_loc, u1_loc, st):
+        """Per-facet residual pair (r0, r1), each (nif, nloc, d), from the
+        two sides' cell-local values."""
+        w = self.facets.w
+        t0, t1, g0, g1, n = st["t0"], st["t1"], st["g0"], st["g1"], \
+            st["n"]
+        u0 = torch.einsum("fql,fld->fqd", t0, u0_loc)
+        u1 = torch.einsum("fql,fld->fqd", t1, u1_loc)
+        gu0 = torch.einsum("fqlj,fld->fqdj", g0, u0_loc)
+        gu1 = torch.einsum("fqlj,fld->fqdj", g1, u1_loc)
+        jump = torch.einsum("fqdj,fj->fqd", gu0 - gu1, n)
+        # beta = facet average of sqrt(|u|^2 + 1e-10) (the sides agree
+        # for a continuous u; averaged anyway, as avg() does)
+        sp0 = torch.sqrt(torch.einsum("fqd,fqd->fq", u0, u0) + 1e-10)
+        sp1 = torch.sqrt(torch.einsum("fqd,fqd->fq", u1, u1) + 1e-10)
+        beta = 0.5 * (torch.einsum("q,fq->f", w, sp0)
+                      + torch.einsum("q,fq->f", w, sp1)) / w.sum()
+        coef = st["coefc"] * beta  # (nif,)
+        tn0 = torch.einsum("fqlj,fj->fql", g0, n)
+        tn1 = torch.einsum("fqlj,fj->fql", g1, n)
+        r0 = torch.einsum("f,q,fqd,fql->fld", coef, w, jump, tn0)
+        r1 = -torch.einsum("f,q,fqd,fql->fld", coef, w, jump, tn1)
+        return r0, r1
+
+    def residual(self, z, params):
+        """Assembled (Rv, Rq), not advect-scaled; Rq is zero."""
+        u, p = z
+        d = self.form.dim
+        r0, r1 = self.residual_pairs(u[self.dofs0], u[self.dofs1],
+                                     self.facet_statics())
+        Rv = torch.zeros_like(u).index_add(
+            0, self.dofs0.reshape(-1), r0.reshape(-1, d)).index_add(
+            0, self.dofs1.reshape(-1), r1.reshape(-1, d))
+        return Rv, torch.zeros_like(p)
+
+    def facet_velocity_tensors(self, u, params):
+        """(nif, 2*nld, 2*nld) per-interior-facet velocity Jacobian of the
+        residual at state ``u``, not advect-scaled; row and column blocks
+        [side-0 cell dofs, side-1 cell dofs], each in the (l*d +
+        component) flattening of the level row maps.  beta uses the LIVE
+        state, so this is the jacfwd of a per-facet kernel mirroring
+        :meth:`residual`, d(beta)/du included."""
+        u01 = torch.stack([u[self.dofs0], u[self.dofs1]], dim=1)
+        return self.facet_velocity_tensors_from(u01, self.facet_statics())
+
+    def facet_velocity_tensors_from(self, u01, st):
+        """The same Jacobians from an explicit (nif, 2, nloc, d) batch."""
+        w = self.facets.w
+        wsum = w.sum()
+
+        def kern(uu, t0f, g0f, t1f, g1f, n, cf):
+            u0l, u1l = uu[0], uu[1]
+            uq0 = torch.einsum("ql,ld->qd", t0f, u0l)
+            uq1 = torch.einsum("ql,ld->qd", t1f, u1l)
+            gu0 = torch.einsum("qlj,ld->qdj", g0f, u0l)
+            gu1 = torch.einsum("qlj,ld->qdj", g1f, u1l)
+            jump = torch.einsum("qdj,j->qd", gu0 - gu1, n)
+            sp0 = torch.sqrt(torch.einsum("qd,qd->q", uq0, uq0) + 1e-10)
+            sp1 = torch.sqrt(torch.einsum("qd,qd->q", uq1, uq1) + 1e-10)
+            coef = cf * (0.5 * (w @ sp0 + w @ sp1) / wsum)
+            tn0 = torch.einsum("qlj,j->ql", g0f, n)
+            tn1 = torch.einsum("qlj,j->ql", g1f, n)
+            r0 = coef * torch.einsum("q,qd,ql->ld", w, jump, tn0)
+            r1 = -coef * torch.einsum("q,qd,ql->ld", w, jump, tn1)
+            return torch.stack([r0, r1], dim=0)  # (2, nl, d)
+
+        J = torch.func.vmap(torch.func.jacfwd(kern))(
+            u01, st["t0"], st["g0"], st["t1"], st["g1"], st["n"],
+            st["coefc"])
+        nif = J.shape[0]
+        nld = J.shape[2] * J.shape[3]
+        return J.reshape(nif, 2 * nld, 2 * nld)
+
+
 class StabilisationWrapper:
     """Adapts a stabilisation to the NSForm hook and the solver's
     lifecycle."""
@@ -352,6 +474,19 @@ class StabilisationWrapper:
         advect = params["advect"]
         Rv, Rq = self.impl.residual(z, params)
         return advect * Rv, advect * Rq
+
+    @property
+    def has_velocity_tensors(self):
+        """True when per-cell velocity-block Jacobians are available for
+        the MG preconditioner (SUPG/GLS)."""
+        return isinstance(self.impl, ShakibSUPG)
+
+    @property
+    def has_facet_tensors(self):
+        """True when per-interior-facet velocity Jacobians are available
+        for the MG preconditioner (Burman, see
+        BurmanStabilisation.facet_velocity_tensors)."""
+        return isinstance(self.impl, BurmanStabilisation)
 
     def velocity_tensors_hook(self, z, params):
         """Un-advect-scaled per-cell Jacobian contribution (see
@@ -374,9 +509,7 @@ def make_stabilisation(form, kind, supg_method, supg_magic, weight,
         else:
             raise NotImplementedError(f"supg_method {supg_method!r}")
     elif kind == "burman":
-        raise NotImplementedError(
-            "Burman stabilisation (Scott-Vogelius) is not ported yet: "
-            "ROADMAP.md Queue 1 item 9")
+        impl = BurmanStabilisation(form, weight=weight)
     else:
         raise ValueError(kind)
     return StabilisationWrapper(impl)

@@ -29,6 +29,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    24, nld = 24); then ``torch.linalg.inv`` (the patch factorisation, a
    library call) is timed at the 3D batches (4913, 189, 189) and
    (729, 189, 189), beside its bound;
+3b. the same at the Scott-Vogelius tables: the K1 macrostar smoother
+   tables of the fine levels of phases 11 (2D, m = 62, the pair kernel)
+   and 12 (3D, m = 1590, the strided kernel), and both fine levels' K2
+   tables and KF tables (Burman's facet term, blocks over both cells of
+   an interior facet, 2 x nld = 24 in 2D, 120 in 3D), whose main-path
+   variant adds into K2's output; then ``torch.linalg.inv`` at both
+   macrostar batches, the bytes of the 3D inverse table and the peak
+   device memory of that call;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -66,15 +74,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pressure null space), k=1, nref=1, SUPG weight 0.05, --restriction,
    Re 1, 10, 50, 100, held to results/logs/bfs3d_p1fb_coarse55_re500.log
    by the same rule;
+11. the second paper's headline protocol (the reference's iters2dsv),
+   through the driver as phase 7: ldc2d Scott-Vogelius k=2 ([P2]^2-DG1,
+   exact grad-div), baseN=10, nref=2 (67,522 dofs), bary hierarchy,
+   macrostar patches, Burman 5e-3, --restriction, --checkpoint, Re 1, 10,
+   100, 200, ..., 1000, held to
+   results/logs/sv_ldc2d_k2_nref2_re10000_cpu.log by phase 7's rule; the
+   velocity of every Re must be pointwise divergence-free,
+   ``divergence_norm`` < 1e-8; K1, K2 and KF must have launched; one
+   Newton linear step at Re=1000 traced;
+12. Scott-Vogelius in 3D: ldc3d SV k=3, baseN=2, nref=1 (39,231 dofs),
+   bary, macrostar (m = 1590), Burman 5e-3, smoothing 10, --restriction,
+   Re 1, 10, 100, held to results/logs/sv_ldc3d_k3_nref1_re500.log
+   (5/2, 5/2, 8/3) by the same rule; peak device memory printed;
 
 then print the kernel table as one JSON line (every table of phases 3
 and 3a in the variant its main path calls, with the launches of the
 phase that drives it: 7 for the 2D tables, 6 for nref=3, 9 and 10 for
-the 3D ones) and, last, the result line ``{"ok": true, "device":
+the 3D ones, 11 and 12 for the Scott-Vogelius ones) and, last, the
+result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 3a (the kernel
+``python3 chip_smoke.py --kernels-only`` stops after phase 3b (the kernel
 rows and the K3 times) and prints no result line: for measurements of the
 kernel alone.
 """
@@ -122,6 +144,27 @@ STEP_ARGV = ["--discretisation", "pkp0", "--mh", "uniform", "--k", "1",
              "--smoothing", "10", "--checkpoint"]
 STEP_JAX = {1: (12, 2), 10: (10, 2), 50: (16, 3), 100: (18, 3)}
 STEP_DOFS = 76132
+#: the second paper's headline protocol (iters2dsv) at nref=2 and the
+#: counts of results/logs/sv_ldc2d_k2_nref2_re10000_cpu.log; that log's
+#: 67,522 dofs (and its nref=1 twin's 16,962) are baseN=10, not the
+#: Makefile's 12 (97,154 dofs at nref=2)
+SV2D_ARGV = ["--discretisation", "sv", "--mh", "bary", "--patch", "macro",
+             "--baseN", "10", "--nref", "2", "--k", "2", "--gamma", "1e4",
+             "--stabilisation-type", "burman", "--stabilisation-weight",
+             "5e-3", "--restriction", "--checkpoint"]
+SV2D_JAX = {1: (8, 2), 10: (8, 2), 100: (13, 3), 200: (14, 3), 300: (14, 3),
+            400: (14, 3), 500: (14, 3), 600: (15, 3), 700: (15, 3),
+            800: (15, 3), 900: (15, 3), 1000: (17, 3)}
+SV2D_DOFS = 67522
+#: SV k=3 in 3D and the counts of results/logs/sv_ldc3d_k3_nref1_re500.log
+SV3D_ARGV = ["--discretisation", "sv", "--mh", "bary", "--patch", "macro",
+             "--baseN", "2", "--nref", "1", "--k", "3", "--gamma", "1e4",
+             "--stabilisation-type", "burman", "--stabilisation-weight",
+             "5e-3", "--smoothing", "10", "--restriction", "--checkpoint"]
+SV3D_JAX = {1: (5, 2), 10: (5, 2), 100: (8, 3)}
+SV3D_DOFS = 39231
+#: the pointwise divergence the SV velocity must stay under
+SV_DIV_TOL = 1e-8
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -138,6 +181,9 @@ PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
                "(pallas_call at :81; deleted in aaee1ce)")
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 (plain-XLA batch-major "
                    "level_apply; no Pallas kernel)")
+XLA_FACET_APPLY = ("alfi_tpu/mg/velocity.py:449 (plain-XLA facet branch of "
+                   "level_apply; no Pallas kernel)")
+REPLACES = {"K1": PALLAS_GEMV, "K2": XLA_LEVEL_APPLY, "KF": XLA_FACET_APPLY}
 
 
 def _median_ms(fn, reps=15, inner=20):
@@ -224,13 +270,14 @@ def _library_operator(op, A):
                                    (op.n, op.n))
 
 
-def _bound_bytes(op):
+def _bound_bytes(op, accumulate=False):
     """What one call on this table's data must move, each byte once, by
     part: the A entries whose row feeds a live output dof and whose
     column gathers a live dof (one f64 multiply-add each), the index
     table, x at the dofs gathered, out, the in-mask only where it zeroes
     a gathered entry, the out-mask, and the passthrough where the
-    out-mask is 0."""
+    out-mask is 0; in the accumulating mode (``accumulate``) out is read
+    and written where the out-mask is 1, and there is no passthrough."""
     import torch
 
     nb, m, _ = op.ashape
@@ -241,25 +288,32 @@ def _bound_bytes(op):
         parts["in_mask"] = op.n
     if op.out_keep is not None:
         parts["out_mask"] = op.n
-        parts["passthrough"] = 8 * int((~op.out_keep).sum())
+        if accumulate:
+            parts["out"] = 16 * int(op.out_keep.sum())
+        else:
+            parts["passthrough"] = 8 * int((~op.out_keep).sum())
+    elif accumulate:
+        parts["out"] = 16 * op.n
     return parts
 
 
-def _bound(op):
+def _bound(op, accumulate=False):
     """(ms, "bytes" or "operations"): the least time of one call, the
     larger of ``_bound_bytes`` over the memory rate and one f64
     multiply-add per needed A entry over the f64 rate."""
-    parts = _bound_bytes(op)
+    parts = _bound_bytes(op, accumulate)
     t_bytes = sum(parts.values()) / HBM_BYTES_PER_S
     t_ops = 2.0 * (parts["A"] // 8) / F64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_kernel(name, op, rng, flush, mask=None):
+def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
     """The fused kernel against its plain version on ``op``'s table, bare
     and masked (with ``op``'s masks, or ``mask`` in and out where the main
-    path calls ``op`` bare); returns one result dict per variant."""
+    path calls ``op`` bare); with ``accumulate`` the masked variant adds
+    into a given out, as the main path calls a KF table; returns one
+    result dict per variant."""
     import torch
 
     from alfi_torch.kernels import PAIR_MAX_M, GatherGemvScatter
@@ -277,6 +331,8 @@ def _check_kernel(name, op, rng, flush, mask=None):
         op = GatherGemvScatter(idx, op.n, op.use, in_mask=mask,
                                out_mask=mask, device=dev)
     lib = _library_operator(bare, A)
+    print("%-22s library CSR: %d nonzeros for %d block entries"
+          % (name, lib.values().numel(), nb * m * m), flush=True)
 
     def library():
         return lib @ x
@@ -292,15 +348,24 @@ def _check_kernel(name, op, rng, flush, mask=None):
     lib_dev = _device_ms(library)
     out = []
     for masked, o in ((False, bare), (True, op)):
-        args = (p,) if o.out_keep is not None else ()
+        acc = accumulate and masked
+        args = (p,) if o.out_keep is not None and not acc else ()
+        # the accumulating mode adds into out: a fresh copy of p for the
+        # checks, one buffer that keeps growing for the timed loops
+        bufs = {"kernel": p.clone(), "plain": p.clone()}
 
-        def kernel():
-            return o(A, x, *args)
+        def call(fn, key, fresh):
+            if not acc:
+                return fn(A, x, *args)
+            return fn(A, x, out=p.clone() if fresh else bufs[key])
 
-        def plain():
-            return o.plain(A, x, *args)
+        def kernel(fresh=False):
+            return call(o, "kernel", fresh)
 
-        yk, yk2, yp = kernel(), kernel(), plain()
+        def plain(fresh=False):
+            return call(o.plain, "plain", fresh)
+
+        yk, yk2, yp = kernel(True), kernel(True), plain(True)
         torch.cuda.synchronize()
         if not torch.equal(yk, yk2):
             raise AssertionError("%s: two launches differ" % name)
@@ -311,7 +376,7 @@ def _check_kernel(name, op, rng, flush, mask=None):
                                  "%.0e" % (name, rel_err, REL_TOL))
         ms_p1, ms_k1 = _median_ms(plain), _median_ms(kernel)
         ms_k2, ms_p2 = _median_ms(kernel), _median_ms(plain)
-        bound_ms, bound_by = _bound(o)
+        bound_ms, bound_by = _bound(o, acc)
         dev_ms = _device_ms(kernel, only=KERNEL_NAME)
         cold_ms = _device_ms(kernel, only=KERNEL_NAME, before=flush)
         # the source's other kernel, where the table allows both (the
@@ -321,7 +386,7 @@ def _check_kernel(name, op, rng, flush, mask=None):
         chosen = o.kernel_path()
         if m % 2 == 0 and m <= PAIR_MAX_M:
             o.path = 3 - chosen
-            y_other, y_other2 = kernel(), kernel()
+            y_other, y_other2 = kernel(True), kernel(True)
             torch.cuda.synchronize()
             other_err = float((y_other - yp).abs().max()) / max(
                 float(yp.abs().max()), 1e-300)
@@ -333,6 +398,7 @@ def _check_kernel(name, op, rng, flush, mask=None):
             o.path = 0
         loaded, live = o.a_bytes()
         r = {"name": name, "shape": (nb, m), "masked": masked,
+             "accumulate": acc,
              "op": main_op if masked == main_masked else None,
              "kernel": KERNEL_OF_PATH[chosen],
              "abs_err": abs_err, "rel_err": rel_err,
@@ -345,7 +411,8 @@ def _check_kernel(name, op, rng, flush, mask=None):
         print("%-22s %6d x %-3d %-6s %8.2e  %s %s (%s, cold %s, other %s) | "
               "%7.2f us %-5s %5s | A %.4f GB loaded, %.4f in the bound, "
               "%s TB/s | %s (%s) | %s (%s)" % (
-                  name, nb, m, "masked" if masked else "bare", rel_err,
+                  name, nb, m, ("adds" if acc else "masked") if masked
+                  else "bare", rel_err,
                   r["kernel"] + ("" if chosen == 1 else "/%d lanes"
                                  % (1 << o.lanes_log2)),
                   _fmt(r["ms"]), _fmt(dev_ms), _fmt(cold_ms),
@@ -360,20 +427,25 @@ def _check_kernel(name, op, rng, flush, mask=None):
     return out
 
 
-def _time_patch_inverses(dev):
+def _time_patch_inverses(dev, batches):
     """torch.linalg.inv (the patch factorisation; a library call, as in
-    the JAX package) at the 3D scale row's star batches, f64: median of 3
-    CUDA-event times after one warm-up, and the inverse's residual."""
+    the JAX package) at the (blocks, m) of ``batches``, f64: median of 3
+    CUDA-event times after one warm-up, the inverse's residual, the bytes
+    of the inverse table and the call's peak device memory."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    for nb in (4913, 729):
-        A = torch.randn((nb, 189, 189), dtype=torch.float64, device=dev,
+    for nb, m in batches:
+        A = torch.randn((nb, m, m), dtype=torch.float64, device=dev,
                         generator=gen)
-        A += 189.0 * torch.eye(189, dtype=torch.float64, device=dev)
+        A += float(m) * torch.eye(m, dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         inv = torch.linalg.inv(A)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         resid = float((torch.bmm(A[:8], inv[:8])
-                       - torch.eye(189, dtype=torch.float64,
+                       - torch.eye(m, dtype=torch.float64,
                                    device=dev)).abs().max())
         if not resid <= 1e-10:
             raise AssertionError("patch inverses: residual %.3e" % resid)
@@ -381,14 +453,17 @@ def _time_patch_inverses(dev):
         # its bound: A read and the inverse written once, against about
         # 2 m^3 operations per block (LU, then the inverse from it) at
         # the f64 tensor-core rate, which the call's GEMMs use
-        t_bytes = 2.0 * nb * 189 * 189 * 8 / HBM_BYTES_PER_S
-        ops = 2.0 * 189 ** 3 * nb
-        print("K3 torch.linalg.inv (%d, 189, 189) f64: %.3f ms (library "
+        t_bytes = 2.0 * nb * m * m * 8 / HBM_BYTES_PER_S
+        ops = 2.0 * m ** 3 * nb
+        print("K3 torch.linalg.inv (%d, %d, %d) f64: %.3f ms (library "
               "call; residual %.2e); bound %.3f ms by operations at %.0f "
-              "TFLOP/s (%.3f ms outside the tensor cores; bytes %.3f ms)"
-              % (nb, ms, resid, 1e3 * ops / F64_TENSOR_FLOP_PER_S,
+              "TFLOP/s (%.3f ms outside the tensor cores; bytes %.3f ms); "
+              "inverse table %.4f GB, peak device memory of the call "
+              "%.3f GB"
+              % (nb, m, m, ms, resid, 1e3 * ops / F64_TENSOR_FLOP_PER_S,
                  F64_TENSOR_FLOP_PER_S / 1e12, 1e3 * ops / F64_FLOP_PER_S,
-                 1e3 * t_bytes), flush=True)
+                 1e3 * t_bytes, 8.0 * nb * m * m / 1e9, peak / 1e9),
+              flush=True)
         del A, inv
 
 
@@ -434,7 +509,8 @@ def _profile_linear_step(solver):
           % (fused, 100.0 * fused / max(busy, 1e-300)), flush=True)
 
 
-def _driver_sweep(label, solver, args, expected, exact, ndofs):
+def _driver_sweep(label, solver, args, expected, exact, ndofs,
+                  uses=("K1", "K2"), state_check=None):
     """One continuation through the port's driver (run_solver with
     --checkpoint) in a temporary working directory, as phases 7, 9 and 10
     run it.  ``expected``: Re -> the JAX package's (Krylov, Newton); every
@@ -442,9 +518,12 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs):
     Re in ``exact`` and elsewhere the same Newton count and at most one
     more Krylov iteration per Newton step.  The launch counts are zeroed
     just before the sweep and read just after (returned per table, by
-    ``id``).  Then one Newton linear step of
-    the last Re is traced, and a second run over the checkpoints must
-    load them all, solve nothing and reproduce the counts."""
+    ``id``); every use in ``uses`` must have launched.
+    ``state_check(re, u)``, when given, runs on each Re's checkpointed
+    velocity (a numpy array) and raises if it fails.  Then one Newton
+    linear step of the last Re is traced, and a second run over the
+    checkpoints must load them all, solve nothing and reproduce the
+    counts."""
     import tempfile
 
     import numpy as np
@@ -478,6 +557,8 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs):
                         chkdir, "nssolution-Re-%s.npz" % re)) as chk:
                     finite = bool(np.isfinite(chk["u"]).all()
                                   and np.isfinite(chk["p"]).all())
+                    if state_check is not None:
+                        state_check(re, chk["u"])
                 if not (results[re]["converged"] and finite):
                     raise AssertionError("%s Re=%s did not converge "
                                          "(finite=%s)" % (label, re, finite))
@@ -510,7 +591,7 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs):
                     raise AssertionError(
                         "%s Re=%s: Krylov/Newton %d/%d against the "
                         "JAX package's %d/%d" % (label, re, k, n, kj, nj))
-            for use in ("K1", "K2"):
+            for use in uses:
                 if launches[use] <= 0:
                     raise AssertionError("the fused kernel was not launched "
                                          "for %s on the %s path"
@@ -625,6 +706,8 @@ def main(kernels_only=False):
     head_args = parser.parse_args(HEADLINE_ARGV)
     scale_args = parser.parse_args(SCALE_ARGV)
     step_args = parser.parse_args(STEP_ARGV)
+    sv2d_args = parser.parse_args(SV2D_ARGV)
+    sv3d_args = parser.parse_args(SV3D_ARGV)
     bench = timed("bench", lambda: make(16, 2))
     head = timed("headline", lambda: get_solver(
         head_args, TwoDimLidDrivenCavityProblem(head_args.baseN),
@@ -636,6 +719,12 @@ def main(kernels_only=False):
     step = timed("3D step", lambda: get_solver(
         step_args, ThreeDimBackwardsFacingStepProblem(
             os.path.join(here, STEP_MESH)), device=dev))
+    sv2d = timed("SV 2D", lambda: get_solver(
+        sv2d_args, TwoDimLidDrivenCavityProblem(sv2d_args.baseN),
+        device=dev))
+    sv3d = timed("SV 3D", lambda: get_solver(
+        sv3d_args, ThreeDimLidDrivenCavityProblem(sv3d_args.baseN),
+        device=dev))
 
     def tables(vmg, levels, tag=""):
         """(name, table, mask for the masked variant) of a hierarchy's K1
@@ -655,6 +744,14 @@ def main(kernels_only=False):
     # 3a. and on the 3D ones
     ops3d = tables(scale.vmg, (2, 1), "3D ") + tables(step.vmg, (1,),
                                                       "step ")
+    # 3b. and on the Scott-Vogelius ones (KF adds into K2's output)
+    ops_sv = [("K1 macrostar SV L2", sv2d.vmg.patch_solvers[-1][1], None),
+              ("K2 level SV L2", sv2d.vmg.levels[-1].matvec, None),
+              ("KF facets SV L2", sv2d.vmg.facet_matvecs[-1], None),
+              ("K1 macrostar SV 3D L1", sv3d.vmg.patch_solvers[-1][1],
+               None),
+              ("K2 level SV 3D L1", sv3d.vmg.levels[-1].matvec, None),
+              ("KF facets SV 3D L1", sv3d.vmg.facet_matvecs[-1], None)]
     flush_buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
                             device=dev)
     rng = np.random.default_rng(0)
@@ -663,11 +760,14 @@ def main(kernels_only=False):
         "kernel, ms eager (device, cold, the other kernel) | bound, share | "
         "bytes of A | plain ms eager (device) | library ms eager (device)"))
     table = []
-    for name, op, mask in ops2d + ops3d:
-        table += _check_kernel(name, op, rng, flush_buf.zero_, mask)
+    for name, op, mask in ops2d + ops3d + ops_sv:
+        table += _check_kernel(name, op, rng, flush_buf.zero_, mask,
+                               accumulate=op.use == "KF")
         torch.cuda.empty_cache()
     del flush_buf
-    _time_patch_inverses(dev)
+    sv_batches = [(ps.npatches, ps.m) for ps in (sv2d.vmg.patchsets[-1],
+                                                 sv3d.vmg.patchsets[-1])]
+    _time_patch_inverses(dev, [(4913, 189), (729, 189)] + sv_batches)
     torch.cuda.empty_cache()
     if kernels_only:
         return
@@ -774,6 +874,41 @@ def main(kernels_only=False):
     per_table = _driver_sweep("3D step", step, step_args, STEP_JAX,
                               (1, 10), STEP_DOFS)
     launched.update((k, v) for k, v in per_table.items() if v)
+    del step
+    torch.cuda.empty_cache()
+
+    # 11. the second paper's headline protocol, Scott-Vogelius with
+    # Burman, through the driver; the velocity of every Re divergence-free
+    from alfi_torch.fem.errors import ErrorComputer
+
+    def divergence_free(solver, gate):
+        errors = ErrorComputer(solver.form)
+        norms = {}
+
+        def check(re, u):
+            norms[re] = float(errors.divergence_norm(
+                torch.as_tensor(u, device=dev)))
+            print("  Re=%s divergence_norm %.3e" % (re, norms[re]),
+                  flush=True)
+            if gate and not norms[re] < SV_DIV_TOL:
+                raise AssertionError("SV Re=%s: divergence_norm %.3e >= "
+                                     "%.0e" % (re, norms[re], SV_DIV_TOL))
+
+        return check
+
+    per_table = _driver_sweep(
+        "SV headline protocol", sv2d, sv2d_args, SV2D_JAX, HEADLINE_EXACT,
+        SV2D_DOFS, uses=("K1", "K2", "KF"),
+        state_check=divergence_free(sv2d, True))
+    launched.update((k, v) for k, v in per_table.items() if v)
+    del sv2d
+    torch.cuda.empty_cache()
+
+    # 12. Scott-Vogelius in 3D (macrostar patches of m = 1590)
+    per_table = _driver_sweep(
+        "SV 3D", sv3d, sv3d_args, SV3D_JAX, tuple(SV3D_JAX), SV3D_DOFS,
+        uses=("K1", "K2", "KF"), state_check=divergence_free(sv3d, False))
+    launched.update((k, v) for k, v in per_table.items() if v)
 
     src = os.path.relpath(kernels.SOURCE, here)
     entries = []
@@ -788,9 +923,10 @@ def main(kernels_only=False):
         entries.append({
             "name": "gather_gemv_scatter %s kernel (%s, %d x %d, %s)" % (
                 r["kernel"], r["name"], r["shape"][0], r["shape"][1],
-                "masked" if r["masked"] else "bare"),
+                ("adds" if r["accumulate"] else "masked") if r["masked"]
+                else "bare"),
             "route": "cuda", "source": src,
-            "replaces": PALLAS_GEMV if use == "K1" else XLA_LEVEL_APPLY,
+            "replaces": REPLACES[use],
             "launches": n_launch,
             "max_abs_err": max(t["abs_err"] for t in table
                                if t["name"] == r["name"]),

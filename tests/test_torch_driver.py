@@ -8,7 +8,16 @@ uniform, SUPG shakib, --restriction), f64 on the CPU:
 * checkpoints cross both ways: the port's run_solver loads the JAX
   package's, and the JAX package's loads the port's, solving nothing;
 * --paraview writes one VTU file per Re;
-* every choice the port does not have yet raises NotImplementedError;
+* every choice the port does not have yet raises NotImplementedError,
+  and every choice it has builds a solver (SV, bary, macrostar, Burman,
+  --mkl accepted and unused);
+* the recovery code, with a stubbed ``newton`` or ``solve`` (twins of
+  tests/test_continuation_recovery.py, the three recovery tests of
+  tests/test_resume_distill.py and tests/test_newton_dtol.py): a diverged
+  solve restores the last converged state and is not checkpointed, a
+  diverged checkpoint is retried, a table-only checkpoint resumes and a
+  cache miss below the frontier warm-starts from the nearest full one, a
+  truncated npz is solved again, and Newton stops on dtol;
 * ``python -m alfi_torch.examples.iters --device cpu`` prints both tables;
 * performance_info lists the solve loop's events (no wall-clock gate);
 * the committed log of the port's Re=10,000 sweep on the card has the
@@ -168,6 +177,29 @@ def test_h100_log_has_the_jax_counts():
     assert port == ref
 
 
+@pytest.mark.parametrize("port_log,ref_log,n", [
+    ("sv_ldc2d_k2_nref1_re10000.log", "sv_ldc2d_k2_nref1_re10000_cpu.log",
+     102),
+    ("sv_ldc2d_k2_nref2_re10000.log", "sv_ldc2d_k2_nref2_re10000_cpu.log",
+     102),
+    ("sv_ldc3d_k3_nref1_re500.log", "sv_ldc3d_k3_nref1_re500.log", 7),
+])
+def test_h100_sv_logs_have_the_jax_counts(port_log, ref_log, n):
+    """The port's Scott-Vogelius sweeps on the card (iters2dsv at nref 1
+    and 2 to Re 10,000, SV k=3 in 3D to Re 500; committed logs) against
+    the JAX package's logs: equal counts at every Re.  Most dict lines of
+    the JAX nref=2 log are table-only checkpoint rows (0/0); their counts
+    are the ones its solves printed earlier in the same log."""
+    from alfi_torch.examples.compare_iters import solve_records
+
+    port = solve_records(os.path.join(REPO, "results", "torch_h100",
+                                      port_log))
+    ref = solve_records(os.path.join(REPO, "results", "logs", ref_log))
+    assert len(port) == len(ref) == n
+    assert port == ref
+    assert (0, 0) not in ref.values()
+
+
 def test_performance_info_lists_the_solve_events(sweeps, capsys):
     _, _, tsolver, _, _ = sweeps
     tdriver.performance_info(tsolver)
@@ -178,19 +210,13 @@ def test_performance_info_lists_the_solve_events(sweeps, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--discretisation", "sv"],
     ["--solver-type", "lu"],
     ["--solver-type", "allu"],
     ["--solver-type", "alamg"],
     ["--solver-type", "simple"],
     ["--solver-type", "lsc"],
-    ["--mh", "bary"],
-    ["--mh", "uniformbary"],
-    ["--patch", "macro"],
     ["--patch-composition", "multiplicative"],
-    ["--stabilisation-type", "burman"],
     ["--nref-vis", "1"],
-    ["--mkl"],
     ["--ndevices", "2"],
     ["--rebalance"],
 ], ids=lambda e: " ".join(e))
@@ -198,6 +224,262 @@ def test_unported_choices_raise(extra):
     args = _args(tdriver, extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         tdriver.get_solver(args, TorchLDC(4), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--discretisation", "sv"],
+    ["--mh", "bary"],
+    ["--mh", "uniformbary"],
+    ["--patch", "macro", "--mh", "bary"],
+    ["--stabilisation-type", "burman"],
+    ["--mkl"],
+], ids=lambda e: " ".join(e))
+def test_ported_choices_build(extra):
+    """Each choice builds its solver on the CPU at baseN=2, with the JAX
+    package's discretisation, hierarchy, patches and stabilisation."""
+    args = _args(tdriver, extra)
+    args.baseN = 2
+    solver = tdriver.get_solver(args, TorchLDC(2), device="cpu")
+    jsolver = jdriver.get_solver(_args(jdriver, extra), JaxLDC(2))
+    assert type(solver).__name__ == type(jsolver).__name__
+    assert solver.Z.dim == jsolver.Z.dim
+    assert solver.mh.kind == jsolver.mh.kind == args.mh
+    assert ([ps.m for ps in solver.vmg.patchsets]
+            == [ps.m for ps in jsolver.vmg.patchsets])
+    assert (solver.vmg.stab_facet is None) == (
+        args.stabilisation_type != "burman")
+
+
+def test_macro_patches_need_bary():
+    args = _args(tdriver, ["--patch", "macro"])
+    with pytest.raises(ValueError, match="bary"):
+        tdriver.get_solver(args, TorchLDC(4), device="cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"patch_composition": "multiplicative"}, "10d"),
+    ({"nref_vis": 1}, "10h"),
+    ({"rebalance_vertices": True}, "12"),
+], ids=lambda e: str(e))
+def test_solver_kwargs_raise_off_their_defaults(kw, item):
+    from alfi_torch import ConstantPressureSolver
+
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item %s$" % item):
+        ConstantPressureSolver(TorchLDC(2), nref=1, k=2, hierarchy="uniform",
+                               verbose=False, device="cpu", **kw)
+
+
+def test_solver_kwargs_take_the_reference_defaults():
+    """The reference's defaults of patch, use_mkl, nref_vis,
+    patch_composition and rebalance_vertices build; use_mkl is unused."""
+    from alfi_torch import ConstantPressureSolver
+
+    kw = dict(nref=1, k=2, hierarchy="uniform", verbose=False,
+              device="cpu")
+    a = ConstantPressureSolver(TorchLDC(2), patch="star", use_mkl=False,
+                               nref_vis=0, patch_composition="additive",
+                               rebalance_vertices=False, **kw)
+    b = ConstantPressureSolver(TorchLDC(2), use_mkl=True, **kw)
+    assert a.patch == b.patch == "star"
+    assert a.Z.dim == b.Z.dim
+
+
+# ----------------------------------------------------------------------
+# recovery (stubbed newton / solve)
+# ----------------------------------------------------------------------
+def _tiny_solver():
+    from alfi_torch import ConstantPressureSolver
+
+    return ConstantPressureSolver(
+        TorchLDC(4), nref=1, k=2, solver_type="almg", hierarchy="uniform",
+        gamma=1e4, verbose=False, device="cpu")
+
+
+def _chk_args():
+    args, _ = tdriver.get_default_parser().parse_known_args(
+        ["--discretisation", "pkp0", "--checkpoint"])
+    return args
+
+
+def test_diverged_solve_restores_last_state(monkeypatch):
+    import alfi_torch.solver as solver_mod
+
+    s = _tiny_solver()
+    s.solve(1)
+    z_good = s.z
+    real_newton = solver_mod.newton
+
+    def diverging_newton(residual, linear_solve, z0, **kw):
+        z, info = real_newton(residual, linear_solve, z0,
+                              **dict(kw, maxit=1, atol=0.0, rtol=0.0))
+        info.converged = False
+        info.reason = "forced divergence (test)"
+        return (torch.full_like(z[0], float("nan")), z[1]), info
+
+    monkeypatch.setattr(solver_mod, "newton", diverging_newton)
+    _, info = s.solve(10)
+    assert not info["converged"]
+    assert s.z is z_good  # the poisoned iterate must not stick
+    monkeypatch.setattr(solver_mod, "newton", real_newton)
+    _, info2 = s.solve(10)  # the continuation recovers from z_good
+    assert info2["converged"]
+
+
+def test_diverged_solve_not_checkpointed(monkeypatch, tmp_path):
+    import alfi_torch.solver as solver_mod
+
+    monkeypatch.chdir(tmp_path)
+    s = _tiny_solver()
+    real_newton = solver_mod.newton
+    calls = {"n": 0}
+
+    def newton_fail_at_10(residual, linear_solve, z0, **kw):
+        z, info = real_newton(residual, linear_solve, z0, **kw)
+        calls["n"] += 1
+        if calls["n"] == 2:  # the Re=10 step
+            info.converged = False
+        return z, info
+
+    monkeypatch.setattr(solver_mod, "newton", newton_fail_at_10)
+    results = tdriver.run_solver(s, [1, 10], _chk_args())
+    chkptdir = tmp_path / ("checkpoint/%i" % s.Z.dim)
+    assert (chkptdir / "nssolution-Re-1.npz").exists()
+    assert not (chkptdir / "nssolution-Re-10.npz").exists()
+    assert results[1]["converged"] and not results[10]["converged"]
+
+
+def test_diverged_checkpoint_retried(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
+    s = _tiny_solver()
+    chkptdir = tmp_path / ("checkpoint/%i" % s.Z.dim)
+    chkptdir.mkdir(parents=True)
+    np.savez(chkptdir / "nssolution-Re-1.npz",
+             u=np.full(tuple(s.z[0].shape), np.nan),
+             p=np.zeros(tuple(s.z[1].shape)), nu=2.0, linear_iter=0,
+             nonlinear_iter=1, time=0.0, converged=False)
+    results = tdriver.run_solver(s, [1], _chk_args())
+    assert results[1]["converged"]  # solved again, not loaded
+    assert not results[1].get("checkpointed", False)
+    with np.load(chkptdir / "nssolution-Re-1.npz") as chk:
+        assert bool(chk["converged"])  # overwritten by the good solve
+
+
+def test_table_only_checkpoint_resume(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
+    s = _tiny_solver()
+    results = tdriver.run_solver(s, [1, 10], _chk_args())
+    chkptdir = tmp_path / ("checkpoint/%i" % s.Z.dim)
+    # Re=1 becomes table-only, Re=10 keeps its state
+    with np.load(chkptdir / "nssolution-Re-1.npz") as chk:
+        info = {k: chk[k] for k in chk.files
+                if k not in ("u", "p", "numbering")}
+    np.savez(chkptdir / "nssolution-Re-1.npz", **info)
+
+    s2 = _tiny_solver()
+    z0 = s2.z
+    results2 = tdriver.run_solver(s2, [1, 10, 20], _chk_args())
+    # Re=1: the table row, no state loaded, nothing solved
+    assert results2[1]["checkpointed"]
+    assert results2[1]["linear_iter"] == results[1]["linear_iter"]
+    # Re=10: the full frontier state loaded
+    assert results2[10]["checkpointed"]
+    assert not torch.allclose(s2.z[0], z0[0])
+    # Re=20: solved, warm-started from the frontier state
+    assert results2[20]["converged"]
+    assert not results2[20].get("checkpointed", False)
+
+
+class _FakeSolver:
+    """run_solver's contract and nothing else: records the state each
+    solve starts from, so the warm start is observable."""
+
+    def __init__(self, dim=777):
+        import types
+
+        self.Z = types.SimpleNamespace(dim=dim)
+        self.device = torch.device("cpu")
+        self.z = (torch.zeros(8, dtype=torch.float64),
+                  torch.zeros(3, dtype=torch.float64))
+        self.start_states = {}
+
+    def solve(self, re):
+        self.start_states[re] = self.z[0].clone()
+        self.z = (torch.full((8,), float(re), dtype=torch.float64),
+                  torch.zeros(3, dtype=torch.float64))
+        return self.z, {"Re": re, "nu": 1.0 / re, "linear_iter": 4,
+                        "nonlinear_iter": 2, "time": 0.1,
+                        "converged": True}
+
+
+def test_warm_start_below_frontier(monkeypatch, tmp_path):
+    """A cache miss below the frontier warm-starts from the nearest lower
+    full checkpoint (table-only rows never touch solver.z)."""
+    from alfi_torch.interop import numbering_tag
+
+    monkeypatch.chdir(tmp_path)
+    s = _FakeSolver()
+    ck = tmp_path / ("checkpoint/%d" % s.Z.dim)
+    ck.mkdir(parents=True)
+    # Re=1 full and converged, Re=10 table-only, Re=5 missing
+    np.savez(ck / "nssolution-Re-1.npz", u=np.full(8, 1.0), p=np.zeros(3),
+             numbering=numbering_tag(), nu=1.0, linear_iter=3,
+             nonlinear_iter=1, time=0.1, converged=True)
+    np.savez(ck / "nssolution-Re-10.npz", nu=0.1, linear_iter=5,
+             nonlinear_iter=2, time=0.1, converged=True)
+    results = tdriver.run_solver(s, [1, 5, 10], _chk_args())
+    assert results[1]["checkpointed"] and results[10]["checkpointed"]
+    # the Re=5 solve started from the Re=1 state, not from zero
+    assert torch.all(s.start_states[5] == 1.0)
+
+
+def test_truncated_checkpoint_resolves(monkeypatch, tmp_path):
+    """A truncated npz (an interrupted copy) is solved again."""
+    monkeypatch.chdir(tmp_path)
+    s = _FakeSolver()
+    ck = tmp_path / ("checkpoint/%d" % s.Z.dim)
+    ck.mkdir(parents=True)
+    (ck / "nssolution-Re-1.npz").write_bytes(b"PK\x03\x04garbage")
+    results = tdriver.run_solver(s, [1], _chk_args())
+    assert results[1]["converged"]
+    assert 1 in s.start_states  # it really solved
+
+
+def _diverging_system():
+    """A system whose Newton steps multiply the residual by 100."""
+
+    def residual(z):
+        return z
+
+    def linear_solve(z, F):
+        return 99.0 * z, 1
+
+    return residual, linear_solve
+
+
+def test_newton_dtol_aborts_early():
+    from alfi_torch.solvers.newton import newton
+
+    residual, linear_solve = _diverging_system()
+    _, info = newton(residual, linear_solve,
+                     torch.tensor(1.0, dtype=torch.float64), maxit=20,
+                     dtol=1e4)
+    assert not info.converged
+    assert info.reason == "diverged_dtol"
+    # ||F|| = 100^k crosses 1e4 ||F0|| at k = 3
+    assert info.nonlinear_iter <= 3
+
+
+def test_newton_dtol_off_reaches_maxit():
+    from alfi_torch.solvers.newton import newton
+
+    residual, linear_solve = _diverging_system()
+    _, info = newton(residual, linear_solve,
+                     torch.tensor(1.0, dtype=torch.float64), maxit=12,
+                     dtol=float("inf"))
+    assert not info.converged
+    assert info.reason == "max_it"
+    assert info.nonlinear_iter == 12
 
 
 def test_iters_harness_prints_both_tables(tmp_path):
@@ -218,6 +500,28 @@ def test_iters_harness_prints_both_tables(tmp_path):
     kpn = float(rows[1].split("&")[-1].strip().rstrip("\\"))
     assert kpn == 3.5  # 7 Krylov / 2 Newton at Re=10, as the JAX package
     assert float(rows[3].split("&")[-1].strip().rstrip("\\")) > 0
+
+
+def test_iters_harness_runs_the_sv_protocol(tmp_path, monkeypatch, capsys):
+    """The iters2dsv protocol (SV k=2, bary, macrostar, Burman 5e-3,
+    --restriction) at baseN=3 nref=1: the JAX package's harness takes
+    10/2 at Re 1 and 9/2 at Re 10 (kpn 4.50) there, and so does the
+    port's."""
+    from alfi_torch.examples.compare_iters import solve_records
+    from alfi_torch.examples.iters import main
+
+    torch.set_num_threads(1)
+    monkeypatch.chdir(tmp_path)
+    main(["--problem", "ldc2d", "--discretisation", "sv", "--mh", "bary",
+          "--patch", "macro", "--stabilisation-type", "burman",
+          "--stabilisation-weight", "5e-3", "--restriction", "--baseN",
+          "3", "--k", "2", "--nref-start", "1", "--nref-end", "1",
+          "--re-max", "10", "--device", "cpu"])
+    out = capsys.readouterr().out
+    log = tmp_path / "run.log"
+    log.write_text(out)
+    assert solve_records(str(log)) == {1.0: (10, 2), 10.0: (9, 2)}
+    assert "1\t& $1.56\\times 10^3$\t& 4.50\\\\" in out
 
 
 def test_iters_harness_rejects_unported_problems():

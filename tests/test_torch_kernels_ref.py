@@ -330,7 +330,7 @@ def test_cpu_tensors_never_count_launches():
     A = torch.ones((2, 2, 2), dtype=torch.float64)
     out = op(A, torch.ones(3, dtype=torch.float64))
     np.testing.assert_array_equal(out.numpy(), [2.0, 4.0, 2.0])
-    assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0}
+    assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0, "KF": 0}
     assert op.launched == 0
 
 
@@ -606,3 +606,46 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
         op(A, x)
     op.path = 2
     assert torch.equal(op(A.clone(), x), y_strided)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_on_the_sv_tables():
+    """On the card, at the Scott-Vogelius tables of ldc2d SV k=2 baseN=4
+    nref=1 (bary, macrostar, Burman): the macrostar K1 table (m = 62, the
+    pair kernel and the strided one) and the facet table KF in its
+    accumulating mode (m = 24), against the plain version, bitwise equal
+    over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alfi_torch import ScottVogeliusSolver
+
+    dev = torch.device("cuda")
+    sv = ScottVogeliusSolver(
+        TorchLDC(4), nref=1, k=2, solver_type="almg", hierarchy="bary",
+        patch="macro", stabilisation_type="burman",
+        stabilisation_weight=5e-3, gamma=1e4, verbose=False, device=dev)
+    rng = np.random.default_rng(14)
+    lev = sv.vmg.levels[-1]
+    mask = lev.mask_flat
+    for idx, use, masks in (
+            (sv.vmg.patchsets[0].dofs, "K1", {"out_mask": mask}),
+            (sv.vmg.facet_rows[-1], "KF", {"in_mask": mask,
+                                           "out_mask": mask})):
+        op = kernels.GatherGemvScatter(idx, lev.V.ndof * 2, use,
+                                       device=dev, **masks)
+        nb, m, _ = op.ashape
+        assert m == {"K1": 62, "KF": 24}[use]
+        A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
+        x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+        base = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+        for path in (1, 2):
+            op.path = path
+            if use == "KF":
+                yp = op.plain(A, x, out=base.clone())
+                y1, y2 = (op(A, x, out=base.clone()) for _ in range(2))
+            else:
+                yp = op.plain(A, x, base)
+                y1, y2 = op(A, x, base), op(A, x, base)
+            torch.cuda.synchronize()
+            assert torch.equal(y1, y2)
+            assert float((y1 - yp).abs().max() / yp.abs().max()) <= 1e-13
