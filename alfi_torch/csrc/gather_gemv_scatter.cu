@@ -5,9 +5,6 @@
 //            sum_j A[b, i, j] * xin[gidx[b, j]]     (b = s / m, i = s % m)
 //   out[k] = out_mask[k] ? acc[k] : pass[k]        (no out_mask: acc[k])
 //
-// or, in the accumulating mode, out[k] += acc[k] where out_mask[k] (every k
-// without an out_mask), out read and written in place and pass unused.
-//
 // i.e. out = mask * sum_b S_b^T A_b S_b (mask * x) + (1 - mask) * pass, in
 // one launch with a plain C interface (bound by ctypes from
 // alfi_torch/kernels.py, whose GatherGemvScatter builds the tables once
@@ -25,17 +22,12 @@
 //       deleted in aaee1ce, read it with
 //       `git show aaee1ce^:alfi_tpu/solvers/patch_pallas.py`).
 //   K2  level matvec: A_b = per-cell element tensors, idx = MGLevel.rows,
-//       the level's BC mask in and out, pass = v.  Replaces the plain-XLA
+//       the level's BC mask in and out, pass = v: the plain-XLA
 //       batch-major branch of alfi_tpu/mg/velocity.py:VelocityMG.level_apply
-//       (:437-440) and its mask arithmetic.
-//   KF  Burman facet term of the level matvec (Scott-Vogelius): A_b = the
-//       per-interior-facet Jacobians, idx = the facet rows (the dofs of
-//       both cells of the facet, 2 x nld; a dof shared by the two cells
-//       stands in both halves and its CSR list holds both slots, so the
-//       kernel sums them), the level's BC mask in and out, accumulating
-//       into K2's out: the facet branch of level_apply
-//       (alfi_tpu/mg/velocity.py:449-454) as a second launch, cells then
-//       facets, each dof's sum in a fixed order and no atomics.
+//       (:437-440) and its mask arithmetic.  No longer on the main path:
+//       the cycle applies the merged level operator of level_operator.cu,
+//       which reads each coupling once where these blocks repeat it; the
+//       blocked table stays as the yardstick chip_smoke.py times beside it.
 //
 // What bounds it on the card: bytes.  Each A entry that is read is used
 // for one multiply-add, 1/8 flop per byte, far below the f64 ridge point.
@@ -163,17 +155,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxM = 64;
 
-// The one write of dof k: out = keep ? p : pass, or out += p where keep in
-// the accumulating mode (a dof whose out-mask is 0 keeps what it holds).
+// The one write of dof k: out = keep ? p : pass.
 __device__ __forceinline__ void store(double* __restrict__ out,
                                       const double* __restrict__ pass,
-                                      long long k, double p, bool keep,
-                                      bool accumulate) {
-  if (accumulate) {
-    if (keep) out[k] += p;
-  } else {
-    out[k] = keep ? p : pass[k];
-  }
+                                      long long k, double p, bool keep) {
+  out[k] = keep ? p : pass[k];
 }
 
 // One lane's column pair j, j+1 of the A row of slot s and of its
@@ -207,7 +193,7 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
                            const unsigned char* __restrict__ out_mask,
                            const double* __restrict__ pass,
                            double* __restrict__ out, int n, int m,
-                           int glog, bool accumulate) {
+                           int glog) {
   const int G = 1 << glog;
   const long long k =
       ((long long)blockIdx.x * kThreads + threadIdx.x) >> glog;
@@ -231,7 +217,7 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
   // every lane of the warp reaches this point (no early return), so the
   // full-warp shuffles are safe; offsets < G stay inside the group
   for (int o = G >> 1; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-  if (own && j == 0) store(out, pass, k, p, keep, accumulate);
+  if (own && j == 0) store(out, pass, k, p, keep);
 }
 
 // The strided kernel: any m >= 1 (see the header note).  Lane t of a
@@ -283,7 +269,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
                                    const unsigned char* __restrict__ out_mask,
                                    const double* __restrict__ pass,
                                    double* __restrict__ out, int n, int m,
-                                   int glog, bool accumulate) {
+                                   int glog) {
   const int G = 1 << glog;
   const long long k =
       ((long long)blockIdx.x * kThreads + threadIdx.x) >> glog;
@@ -326,7 +312,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
   }
   // every lane of the warp reaches this point, as in the pair kernel
   for (int o = G >> 1; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-  if (own && t == 0) store(out, pass, k, p, keep, accumulate);
+  if (own && t == 0) store(out, pass, k, p, keep);
 }
 
 }  // namespace
@@ -336,9 +322,8 @@ extern "C" {
 // out (n,) = the fused, masked gather-GEMV-scatter above, launched on
 // `stream` of CUDA device `device`.  Any m >= 1; path 0 picks the kernel
 // by m, 1 forces the pair kernel (m even in [2, 64], A 16-byte and gidx
-// 8-byte aligned), 2 the strided one.  accumulate = 0: out_mask and pass
-// both null or both set; accumulate = 1: out is added to where out_mask
-// (or everywhere without one), and pass must be null.  The strided
+// 8-byte aligned), 2 the strided one.  out_mask and pass are both null or
+// both set.  The strided
 // kernel's tables (alfi_torch/kernels.py builds them): slot_cols, the
 // live extent of each slot's block, and glog, log2 of its lanes per dof
 // (0..5).  Returns cudaGetLastError() after the launch
@@ -349,12 +334,9 @@ int alfi_gather_gemv_scatter(const double* A, const double* x,
                              const unsigned char* out_mask,
                              const double* pass, double* out, int n, int m,
                              int path, int device, void* stream,
-                             const int* slot_cols, int glog,
-                             int accumulate) {
+                             const int* slot_cols, int glog) {
   if (n < 0 || m < 1 || path < 0 || path > 2 || glog < 0 || glog > 5 ||
-      accumulate < 0 || accumulate > 1 ||
-      (accumulate ? pass != nullptr
-                  : (out_mask == nullptr) != (pass == nullptr)))
+      (out_mask == nullptr) != (pass == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool pair_ok = m <= kMaxM && m % 2 == 0 &&
                        reinterpret_cast<unsigned long long>(A) % 16 == 0 &&
@@ -374,13 +356,12 @@ int alfi_gather_gemv_scatter(const double* A, const double* x,
   const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
   if (pair)
     gather_gemv_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog,
-        accumulate != 0);
+        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
   else
     gather_gemv_scatter_strided_kernel<<<grid, kThreads, 0,
                                          (cudaStream_t)stream>>>(
         A, x, gidx, offsets, slots, slot_cols, out_mask, pass, out, n, m,
-        glog, accumulate != 0);
+        glog);
   const int err = (int)cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return err;

@@ -19,7 +19,9 @@ import sys
 def solve_records(path):
     """{Re: (linear_iter, nonlinear_iter)} from the dict lines of a log;
     a dict line of a table-only checkpoint (no counts: 0/0) gives way to
-    the counts the solve of that Re printed in the same log."""
+    the counts the solve of that Re printed in the same log.  A log with
+    no dict lines (a harness run that did not reach its table) gives the
+    counts its solves printed."""
     out, solved = {}, {}
     re_now = newton = None
     with open(path) as f:
@@ -43,7 +45,7 @@ def solve_records(path):
                 if counts == (0, 0) and rec.get("checkpointed"):
                     counts = solved.get(float(rec["Re"]), counts)
                 out[rec["Re"]] = counts
-    return out
+    return out or solved
 
 
 def main(argv=None):

@@ -1,8 +1,7 @@
-"""The hand-written CUDA kernel of the almg cycle, its plain PyTorch
-version, and the launch counts that show a run went through it.
+"""The hand-written CUDA kernels of the almg cycle, their plain PyTorch
+versions, and the launch counts that show a run went through them.
 
-One operation carries both hot applies of the multigrid cycle, with the
-boundary masks folded in:
+The patch apply runs the fused, masked gather-GEMV-scatter
 
     out = out_mask * sum_b S_b^T A_b S_b (in_mask * x)
           + (1 - out_mask) * passthrough
@@ -12,20 +11,26 @@ table, and 0/1 masks fixed per table (no out_mask: out is the sum).
 
 * K1, the patch apply (smoother and Schoeberl patch solves): A_b are the
   explicit patch inverses, the table is ``PatchSet.dofs``.
-* K2, the level matvec: A_b are the per-cell element tensors, the table
-  is ``MGLevel.rows``.
-* KF, the Burman facet term of the level matvec (Scott-Vogelius): A_b are
-  the per-interior-facet Jacobians, the table is the facet rows (both
-  cells' dofs, 2 x nld); it adds into K2's output (``out=``).
+* K2, the level matvec by blocks: A_b the per-cell element tensors, the
+  table ``MGLevel.rows``.  The cycle no longer runs it (see below); it
+  stays as the yardstick the merged operator is measured against.
 
 :class:`GatherGemvScatter` binds one table and its masks to the fused
 kernel ``csrc/gather_gemv_scatter.cu`` (one launch per apply; its header
 note says what bounds it on the card, what the design does about it and
-in which order it sums).  The kernel is built with nvcc for ``sm_90a`` at
-first use, into the git-ignored ``_build/`` directory under a name keyed
-by the source's hash, and bound through ``ctypes`` (a plain C interface).
-A table on the CPU runs the plain version; a table on a CUDA device
-launches the kernel or raises.
+in which order it sums).
+
+The level operator (the cell tensors plus, with Burman's stabilisation,
+the interior-facet Jacobians) is applied merged: :class:`MergedLevelOperator`
+binds a level's host pattern (``mg/level_operator.py``) to
+``csrc/level_operator.cu``, whose KA sums the blocks into one operator of
+distinct couplings once per Newton step and whose KM applies it.
+
+Each source is built with nvcc for ``sm_90a`` at first use, into the
+git-ignored ``_build/`` directory under a name keyed by the source's hash,
+and bound through ``ctypes`` (a plain C interface).  A table on the CPU
+runs the plain version; a table on a CUDA device launches the kernel or
+raises.
 
 The 3D tables are ragged: their blocks are padded to the largest one, pads
 trailing.  The strided kernel reads, of a live row, only the columns below
@@ -47,7 +52,10 @@ import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+#: the fused gather-GEMV-scatter (K1)
 SOURCE = os.path.join(_HERE, "csrc", "gather_gemv_scatter.cu")
+#: the merged level operator (KM apply, KA assembly)
+LEVEL_SOURCE = os.path.join(_HERE, "csrc", "level_operator.cu")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -60,9 +68,12 @@ STRIDED_STEPS = 4
 #: strided kernel: the lanes per dof are the power of two (4 .. 32) that
 #: takes this quantile of the live rows' extents in two batches
 LANES_QUANTILE = 0.75
+#: KM: the lanes per node row are the power of two (1 .. 32) that gives
+#: the LANES_QUANTILE row about this many bytes of blocks per lane
+MERGED_BYTES_PER_LANE = 64
 
-_lib = None
-#: compiler output of the build that produced the loaded library
+_libs = {}
+#: compiler output of the builds that produced the loaded libraries
 build_log = ""
 
 
@@ -80,40 +91,64 @@ def _nvcc():
     return path
 
 
-def library_path():
+def library_path(source=SOURCE):
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD, "libalfi_kernels_%s.so" % h.hexdigest()[:16])
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(_BUILD, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the
-    ctypes handle."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    path = library_path()
-    if not os.path.exists(path):
+def _bind(source, lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if source == SOURCE:
+        lib.alfi_gather_gemv_scatter.restype = ci
+        lib.alfi_gather_gemv_scatter.argtypes = ([vp] * 8 + [ci] * 4
+                                                 + [vp, vp, ci])
+    else:
+        lib.alfi_level_apply.restype = ci
+        lib.alfi_level_apply.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.alfi_level_assemble.restype = ci
+        lib.alfi_level_assemble.argtypes = ([vp, vp, ci, vp, vp, vp,
+                                             ctypes.c_longlong, ci, vp])
+    return lib
+
+
+def load_library(source=SOURCE):
+    """Build (if needed) and load the kernel library of ``source``;
+    returns the ctypes handle.  The first call builds every source that
+    is not built yet, one nvcc process per source, all started
+    together."""
+    global build_log
+    if source in _libs:
+        return _libs[source]
+    procs = {}
+    for src in (SOURCE, LEVEL_SOURCE):
+        path = library_path(src)
+        if src in _libs or os.path.exists(path):
+            continue
         os.makedirs(_BUILD, exist_ok=True)
         # private name, then rename: concurrent processes never load a
         # half-written library
         tmp = "%s.tmp%d" % (path, os.getpid())
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        procs[src] = (tmp, path, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (tmp, path, proc) in procs.items():
+        log = proc.communicate()[0]
+        build_log += log
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on %s:\n%s" % (SOURCE,
-                                                           build_log))
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.alfi_gather_gemv_scatter.restype = ci
-    lib.alfi_gather_gemv_scatter.argtypes = ([vp] * 8 + [ci] * 4
-                                             + [vp, vp, ci, ci])
-    _lib = lib
-    return lib
+            failed.append("nvcc failed on %s:\n%s" % (src, log))
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for src in (SOURCE, LEVEL_SOURCE):
+        if src not in _libs:
+            _libs[src] = _bind(src, ctypes.CDLL(library_path(src)))
+    return _libs[source]
 
 
 def csr_from_table(idx, n):
@@ -166,17 +201,27 @@ def _mask_keep(mask, n, name):
     return mask == 1.0
 
 
+def _check_tensor(t, name, shape, device):
+    """Raise unless ``t`` is a contiguous f64 tensor of ``shape`` on
+    ``device``."""
+    if t.device != device:
+        raise ValueError("%s lies on %s, the table on %s"
+                         % (name, t.device, device))
+    if t.dtype != torch.float64 or t.shape != shape:
+        raise ValueError("%s must be f64 of shape %s, got %s %s"
+                         % (name, shape, t.dtype, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+
+
 class GatherGemvScatter:
     """out = out_mask * sum_b S_b^T A_b S_b (in_mask * x)
     + (1 - out_mask) * passthrough, for one fixed index table.
 
     idx (nb, m) host table of positions in x (pads outside [0, n));
-    ``use`` tags the launches ("K1" patch apply, "K2" level matvec, "KF"
-    Burman facet term); ``in_mask`` / ``out_mask``: optional 0/1 masks of
-    n values, fixed here.  With an out_mask every call passes
-    ``passthrough`` (n,), unless it passes ``out`` (n,): then the sum is
-    added into ``out`` in place where out_mask is 1 (everywhere without
-    one), and ``out`` is returned.
+    ``use`` tags the launches ("K1" patch apply, "K2" level matvec by
+    blocks); ``in_mask`` / ``out_mask``: optional 0/1 masks of n values,
+    fixed here.  With an out_mask every call passes ``passthrough`` (n,).
     The device is the table's: A, x and passthrough must lie on it.  On
     a CUDA device the kernel takes any m >= 1 (``path`` 0: the pair
     kernel for an even m <= PAIR_MAX_M and a 16-byte-aligned A, else the
@@ -184,7 +229,7 @@ class GatherGemvScatter:
     measurements)."""
 
     #: kernel launches per use since the last reset_launch_counts()
-    launches = {"K1": 0, "K2": 0, "KF": 0}
+    launches = {"K1": 0, "K2": 0}
     #: every live table, so that reset_launch_counts() reaches its count
     _tables_alive = weakref.WeakSet()
 
@@ -247,23 +292,10 @@ class GatherGemvScatter:
                             self.slot_cols.data_ptr())
 
     def _check(self, t, name, shape):
-        if t.device != self.device:
-            raise ValueError("%s lies on %s, the table on %s"
-                             % (name, t.device, self.device))
-        if t.dtype != torch.float64 or t.shape != shape:
-            raise ValueError("%s must be f64 of shape %s, got %s %s"
-                             % (name, shape, t.dtype, tuple(t.shape)))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
+        _check_tensor(t, name, shape, self.device)
 
-    def __call__(self, A, x, passthrough=None, *, out=None):
-        if out is not None:
-            if passthrough is not None:
-                raise ValueError("out= takes no passthrough")
-            self._check(out, "out", (self.n,))
-            if out.data_ptr() == x.data_ptr():
-                raise ValueError("out must not be x")
-        elif (passthrough is None) != (self.out_keep is None):
+    def __call__(self, A, x, passthrough=None):
+        if (passthrough is None) != (self.out_keep is None):
             raise ValueError("passthrough is required exactly when the "
                              "table has an out_mask")
         self._check(A, "A", self.ashape)
@@ -271,24 +303,21 @@ class GatherGemvScatter:
         if passthrough is not None:
             self._check(passthrough, "passthrough", (self.n,))
         if self._launch is None:
-            return self.plain(A, x, passthrough, out=out)
+            return self.plain(A, x, passthrough)
         a_ptr = A.data_ptr()
         if self.path == 1 and (a_ptr % 16 or self.m % 2
                                or self.m > PAIR_MAX_M):
             raise ValueError("the pair kernel takes an even m <= %d and a "
                              "16-byte-aligned A, got m=%d"
                              % (PAIR_MAX_M, self.m))
-        accumulate = out is not None
-        if not accumulate:
-            out = torch.empty((self.n,), dtype=torch.float64,
-                              device=self.device)
+        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
         gidx, offsets, slots, out_mask, slot_cols = self._tables
         err = self._launch(
             a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
             None if passthrough is None else passthrough.data_ptr(),
             out.data_ptr(), self.n, self.m, self.path, self.device.index,
             torch._C._cuda_getCurrentRawStream(self.device.index),
-            slot_cols, self.lanes_log2, int(accumulate))
+            slot_cols, self.lanes_log2)
         if err != 0:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
@@ -316,9 +345,9 @@ class GatherGemvScatter:
             return 8 * self.m * int(block.numel()), 8 * live
         return 8 * int(self.slot_cols.sum()), 8 * live
 
-    def plain(self, A, x, passthrough=None, *, out=None):
+    def plain(self, A, x, passthrough=None):
         """The same operation in plain PyTorch (torch.where masks, an
-        einsum and index_add), on any device; ``out`` as in __call__."""
+        einsum and index_add), on any device."""
         n = self.n
         if self.in_keep is not None:
             x = torch.where(self.in_keep, x, 0.0)
@@ -326,13 +355,147 @@ class GatherGemvScatter:
         Y = torch.einsum("bij,bj->bi", A, xin)
         acc = x.new_zeros(n + 1).index_add_(0, self.pidx.reshape(-1),
                                             Y.reshape(-1))[:n]
-        if out is not None:
-            if self.out_keep is None:
-                return out.add_(acc)
-            return out.copy_(torch.where(self.out_keep, out + acc, out))
         if self.out_keep is None:
             return acc
         return torch.where(self.out_keep, acc, passthrough)
+
+
+def merged_lanes_log2(row_lengths, d):
+    """log2 of KM's lanes per node row for a table of d x d blocks whose
+    rows hold these numbers of blocks: the power of two, 1 to a warp,
+    that gives the LANES_QUANTILE row at most MERGED_BYTES_PER_LANE bytes
+    of blocks per lane.  More lanes per row keep more loads in flight;
+    on the card (PERF.md section 6) 64 bytes a lane gave the fastest or
+    nearly fastest width at every level table: 8 lanes for the 2D rows of
+    9 blocks of 32 bytes, 16 for the 3D step's rows of 12 blocks of 72
+    bytes, 32 for the cavity's of about 27."""
+    if len(row_lengths) == 0:
+        return 0
+    q = float(np.quantile(row_lengths, LANES_QUANTILE)) * 8 * d * d
+    return int(np.clip(np.ceil(np.log2(max(q / MERGED_BYTES_PER_LANE,
+                                           1.0))), 0, 5))
+
+
+class MergedLevelOperator:
+    """The merged level operator of one level (``mg/level_operator.py``
+    builds its host ``pattern``, a :class:`LevelPattern`): per Newton
+    step :meth:`assemble` (KA) sums the cell tensors and, with Burman's
+    stabilisation, the facet tensors into the merged values ``vals``
+    (nnzb, d, d); every apply (KM) then computes
+
+        out = keep * A x + (1 - keep) * x
+
+    with the BC mask folded in (masked entries are 0).  Both kernels are
+    ``csrc/level_operator.cu`` (its header note says what bounds them and
+    in which order they sum).  Tensors on the CPU run the plain versions;
+    on a CUDA device the kernels launch or raise."""
+
+    #: kernel launches per kernel since the last reset_launch_counts()
+    launches = {"KM": 0, "KA": 0}
+    _tables_alive = weakref.WeakSet()
+
+    def __init__(self, pattern, *, device):
+        self.pattern = pattern
+        d = pattern.d
+        self.n, self.d, self.nodes = pattern.n, d, pattern.nodes
+        self.vshape = (pattern.nnzb, d, d)
+        self.cell_shape, self.facet_shape = (pattern.cell_shape,
+                                             pattern.facet_shape)
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        self.rowptr, self.bcol = dev(pattern.rowptr), dev(pattern.bcol)
+        self.device = self.rowptr.device
+        self.amap_ptr, self.amap_src = (dev(pattern.amap_ptr),
+                                        dev(pattern.amap_src))
+        #: the mask as one 0/1 byte (bool) per flat dof
+        self.keep = dev(pattern.keep)
+        #: per block, its row node (the plain version's scatter)
+        self.brow = dev(np.repeat(np.arange(self.nodes), pattern.row_lengths))
+        #: log2 of KM's lanes per node row
+        self.lanes_log2 = merged_lanes_log2(pattern.row_lengths, d)
+        #: this table's launches per kernel since the last
+        #: reset_launch_counts()
+        self.launched = {"KM": 0, "KA": 0}
+        MergedLevelOperator._tables_alive.add(self)
+        self._lib = None
+        if self.device.type == "cuda":
+            self._lib = load_library(LEVEL_SOURCE)
+
+    def _check(self, t, name, shape):
+        _check_tensor(t, name, shape, self.device)
+
+    def _counted(self, kernel, err):
+        if err != 0:
+            raise RuntimeError("level_operator %s: CUDA error %d after "
+                               "launch" % (kernel, err))
+        MergedLevelOperator.launches[kernel] += 1
+        self.launched[kernel] += 1
+
+    def assemble(self, cells, facets=None):
+        """(nnzb, d, d) merged values from the cell tensors (nc, nld, nld)
+        and the facet tensors (nf, 2 nld, 2 nld), which are given exactly
+        when the pattern has facets."""
+        self._check(cells, "cells", self.cell_shape)
+        if (facets is None) != (self.facet_shape is None):
+            raise ValueError("facet tensors are required exactly when the "
+                             "pattern has facets")
+        if facets is not None:
+            self._check(facets, "facets", self.facet_shape)
+        if self._lib is None:
+            return self.plain_assemble(cells, facets)
+        vals = torch.empty(self.vshape, dtype=torch.float64,
+                           device=self.device)
+        idx = self.device.index
+        self._counted("KA", self._lib.alfi_level_assemble(
+            cells.data_ptr(), None if facets is None else facets.data_ptr(),
+            self.pattern.ncell, self.amap_ptr.data_ptr(),
+            self.amap_src.data_ptr(), vals.data_ptr(), vals.numel(), idx,
+            torch._C._cuda_getCurrentRawStream(idx)))
+        return vals
+
+    def __call__(self, vals, x):
+        """out (n,) = keep * A x + (1 - keep) * x, A the merged values."""
+        self._check(vals, "vals", self.vshape)
+        self._check(x, "x", (self.n,))
+        if self._lib is None:
+            return self.plain(vals, x)
+        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
+        idx = self.device.index
+        self._counted("KM", self._lib.alfi_level_apply(
+            vals.data_ptr(), x.data_ptr(), self.rowptr.data_ptr(),
+            self.bcol.data_ptr(), self.keep.data_ptr(), out.data_ptr(),
+            self.nodes, self.d, self.lanes_log2, idx,
+            torch._C._cuda_getCurrentRawStream(idx)))
+        return out
+
+    def plain_assemble(self, cells, facets=None):
+        """KA in plain PyTorch: the map's sources gathered and added by
+        index_add_ in the map's order (deterministic on the CPU only)."""
+        src = cells.reshape(-1)
+        if facets is not None:
+            src = torch.cat([src, facets.reshape(-1)])
+        nvals = self.amap_ptr.numel() - 1
+        dest = torch.repeat_interleave(
+            torch.arange(nvals, device=self.device),
+            torch.diff(self.amap_ptr.long()))
+        vals = src.new_zeros(nvals).index_add_(0, dest,
+                                               src[self.amap_src.long()])
+        return vals.reshape(self.vshape)
+
+    def plain(self, vals, x):
+        """KM in plain PyTorch: x gathered by block column, an einsum and
+        an index_add_ by block row, then the passthrough."""
+        xb = x.reshape(self.nodes, self.d)[self.bcol.long()]
+        y = torch.einsum("bij,bj->bi", vals, xb)
+        acc = x.new_zeros((self.nodes, self.d)).index_add_(0, self.brow, y)
+        return torch.where(self.keep, acc.reshape(-1), x)
+
+    def value_bytes(self):
+        """Bytes of one apply's merged operator: the values and their
+        block columns."""
+        return self.pattern.nnzb * (8 * self.d * self.d + 4)
 
 
 def reset_launch_counts():
@@ -341,3 +504,7 @@ def reset_launch_counts():
         GatherGemvScatter.launches[key] = 0
     for table in GatherGemvScatter._tables_alive:
         table.launched = 0
+    for key in MergedLevelOperator.launches:
+        MergedLevelOperator.launches[key] = 0
+    for table in MergedLevelOperator._tables_alive:
+        table.launched = dict.fromkeys(table.launched, 0)

@@ -9,9 +9,11 @@ on the coarse grid.
 Everything per-Newton-step (coarse winds by injection, per-cell element
 tensors, per-facet Burman tensors, patch inverses, coarse LU) is rebuilt
 by :meth:`VelocityMG.setup` from (params, fine wind, fine pressure); the
-topology (patches, transfers, dof maps) is static host data turned into
-device tables once.  The level matvec runs kernel K2 (and KF for the
-Burman facet term) and the patch smoother kernel K1
+topology (patches, transfers, dof maps, the merged level operators'
+patterns) is static host data turned into device tables once.  Per
+Newton step and level, kernel KA sums the cell tensors (and the Burman
+facet tensors) into one merged level operator, which every level apply of
+that step reads with kernel KM; the patch smoother runs kernel K1
 (alfi_torch/kernels.py).
 
 Ported choices: star and macrostar patches, additive composition,
@@ -32,7 +34,7 @@ from ..fem import (
     VectorFunctionSpace,
     dg_lagrange,
 )
-from ..kernels import GatherGemvScatter
+from ..kernels import MergedLevelOperator
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
@@ -48,6 +50,7 @@ from .patches import (
     star_patches,
 )
 from .bubble import BubbleTransfer
+from .level_operator import LevelPattern
 from .schoeberl import SchoeberlTransfer
 from .transfer import injection, prolongation
 
@@ -60,10 +63,6 @@ class MGLevel:
         self.mask_flat = mask_u.reshape(-1)
         #: (nc, nloc*d) flattened dof rows
         self.rows = torch.as_tensor(rows, dtype=torch.int64, device=device)
-        #: the level matvec, BC masks folded in (kernel K2)
-        self.matvec = GatherGemvScatter(
-            rows, V.ndof * V.value_size, "K2", in_mask=self.mask_flat,
-            out_mask=self.mask_flat, device=device)
 
     def gather_cells(self, v0):
         """(nc, nld) cell-local values from the flat vector ``v0``."""
@@ -176,12 +175,13 @@ class VelocityMG:
         # Burman's facet coupling in the level operators and patch
         # matrices (the reference assembles the full stabilised Jacobian,
         # dS jump term included, into PCMG/PCPatch): one stabilisation
-        # per level, the fine level's the solver's; a KF table per level
-        # on the facet rows (both cells' dofs); per patch set the facet
-        # tables of the contraction.  The patch matrices are then
-        # assembled per Newton step from the whole tensors, so the static
-        # K and G patch contractions are not kept.
+        # per level, the fine level's the solver's; per level the facet
+        # rows (both cells' dofs), which the merged level operator sums
+        # in; per patch set the facet tables of the contraction.  The
+        # patch matrices are then assembled per Newton step from the whole
+        # tensors, so the static K and G patch contractions are not kept.
         self.stab_facet = None
+        self.facet_rows = [None] * self.nlevels
         if st is not None and st.has_facet_tensors:
             self.stab_facet = [
                 (st.impl if l == self.nlevels - 1 else
@@ -189,16 +189,11 @@ class VelocityMG:
                                      weight=st.impl.weight))
                 for l in range(self.nlevels)
             ]
-            self.facet_rows, self.facet_matvecs = [], []
             for l, lev in enumerate(self.levels):
                 fc = self.stab_facet[l].facets.cells
                 rows = lev.rows.cpu().numpy()
-                frows = np.concatenate([rows[fc[:, 0]], rows[fc[:, 1]]],
-                                       axis=1)
-                self.facet_rows.append(frows)
-                self.facet_matvecs.append(GatherGemvScatter(
-                    frows, lev.V.ndof * d, "KF", in_mask=lev.mask_flat,
-                    out_mask=lev.mask_flat, device=self.device))
+                self.facet_rows[l] = np.concatenate(
+                    [rows[fc[:, 0]], rows[fc[:, 1]]], axis=1)
             self.patch_facet_tabs = [
                 FacetPatchTables(self.patchsets[l - 1],
                                  self.stab_facet[l].facets,
@@ -207,21 +202,33 @@ class VelocityMG:
             ]
             self.factor_parts = [None] * len(self.factor_parts)
 
+        #: per level the merged level operator (kernels KA and KM), its
+        #: pattern the union of the cell and facet blocks' couplings
+        self.level_ops = [
+            MergedLevelOperator(LevelPattern(
+                lev.rows.cpu().numpy(), lev.V.ndof * d, d,
+                lev.mask_flat.cpu().numpy(), self.facet_rows[l]),
+                device=self.device)
+            for l, lev in enumerate(self.levels)]
+
     # ------------------------------------------------------------------
     # per-level masked operator from element tensors
     # ------------------------------------------------------------------
-    def level_apply(self, l, tensors, v, ftensors=None):
+    def level_assemble(self, l, tensors, ftensors=None):
+        """The merged values of level l's operator, summed by kernel KA
+        from the cell tensors and, with Burman's stabilisation, the facet
+        tensors ``ftensors``: once per level and Newton step."""
+        return self.level_ops[l].assemble(tensors, ftensors)
+
+    def level_apply(self, l, vals, v):
         """A_l v on (ndof, d) tensors with eliminated BCs:
-        mask * sum_c R_c^T T_c R_c (mask * v) + (1 - mask) * v, in one
-        call of kernel K2; ``ftensors`` adds the interior-facet (Burman)
-        part, mask * sum_f R_f^T F_f R_f (mask * v), by a second launch,
-        of kernel KF, that adds into K2's output."""
+        mask * (sum_c R_c^T T_c R_c + sum_f R_f^T F_f R_f) (mask * v)
+        + (1 - mask) * v, the facet sum with Burman's stabilisation only,
+        in one call of kernel KM on the merged values ``vals`` =
+        level_assemble(l, ...)."""
         lev = self.levels[l]
-        v0 = v.reshape(-1)
-        out = lev.matvec(tensors, v0, v0)
-        if ftensors is not None:
-            out = self.facet_matvecs[l](ftensors, v0, out=out)
-        return out.reshape(lev.V.ndof, self.d)
+        return self.level_ops[l](vals, v.reshape(-1)).reshape(lev.V.ndof,
+                                                              self.d)
 
     # ------------------------------------------------------------------
     def transfer_setup(self, params, statics):
@@ -282,7 +289,6 @@ class VelocityMG:
             tensors.append(M_el + params["gamma"] * G_el)
             N_els.append(N_el)
         ftensors = [None] * self.nlevels
-        frows0 = None
         if self.stab_facet is not None:
             # per-level Burman facet Jacobians at the injected winds,
             # advect-scaled like the cell stabilisation terms; the patch
@@ -294,7 +300,6 @@ class VelocityMG:
                  ).contiguous()
                 for l in range(self.nlevels)
             ]
-            frows0 = self.facet_rows[0]
             patch_lufacs = [
                 patch_inverses(
                     assemble_patch_matrices(self.patchsets[l - 1],
@@ -313,10 +318,14 @@ class VelocityMG:
         lev0 = self.levels[0]
         A0 = assemble_dense_from_tensors(lev0.form, tensors[0], lev0.mask_u,
                                          facet_tensors=ftensors[0],
-                                         facet_rows=frows0)
+                                         facet_rows=self.facet_rows[0])
+        # level 0 is solved densely and never applied
+        level_ops = [None] + [self.level_assemble(l, tensors[l], ftensors[l])
+                              for l in range(1, self.nlevels)]
         return {
             "tensors": tensors,
             "ftensors": ftensors,
+            "level_ops": level_ops,
             "patch_lufacs": patch_lufacs,
             "coarse_fac": coarse_factor(A0),
             "schoeberl": schoeberl_state,
@@ -345,11 +354,10 @@ class VelocityMG:
         """Fixed-iteration level smoother: FGMRES(smoothing) + patch PC
         (ksp_convergence_test skip).  ``x0=None`` means a zero initial
         guess (the defect is then ``b`` itself)."""
-        tensors = state["tensors"][l]
-        ften = state["ftensors"][l]
+        vals = state["level_ops"][l]
 
         def A(v):
-            return self.level_apply(l, tensors, v, ftensors=ften)
+            return self.level_apply(l, vals, v)
 
         m = self.smoothing
         x, _ = fgmres(A, b, pc=self._smoother_pc(l, state), x0=x0,
@@ -378,8 +386,7 @@ class VelocityMG:
         if l == 0:
             return self._coarse_solve(state, b)
         x = self._smooth(l, state, b, x0)
-        r = b - self.level_apply(l, state["tensors"][l], x,
-                                 ftensors=state["ftensors"][l])
+        r = b - self.level_apply(l, state["level_ops"][l], x)
         rc = self._restrict(l - 1, state, r)
         xc = self.vcycle(l - 1, state, rc, None)
         x = x + self._prolong(l - 1, state, xc)

@@ -48,9 +48,9 @@ import subprocess
 import sys
 
 ORDER = ("parent", "change", "change", "parent")
-KEYS = ("K1 ", "K2 ", "K3 ", "kernel build:", "bench config:",
+KEYS = ("K1 ", "K2 ", "K3 ", "level ", "kernel build:", "bench config:",
         "profiled linear step:", "Jacobian action", "nref=3: Re",
-        "headline protocol", "3D scale row", "3D step")
+        "headline protocol", "3D scale row", "3D step", "SV ")
 
 
 def alternate(parent, change, out_dir):

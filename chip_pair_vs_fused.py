@@ -78,7 +78,9 @@ def main(pair_src):
            for l in (2, 1)]
     ops += [("K1 schoeberl L%d" % (t.l + 1), t.papply)
             for t in reversed(vmg.schoeberl)]
-    ops += [("K2 level L%d" % l, vmg.levels[l].matvec) for l in (2, 1)]
+    ops += [("K2 level L%d" % l, kernels.GatherGemvScatter(
+        vmg.levels[l].rows.cpu().numpy(), vmg.level_ops[l].n, "K2",
+        device=dev)) for l in (2, 1)]
     rng = np.random.default_rng(0)
     worst = 0.0
     for name, op in ops:

@@ -6,12 +6,14 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernel from ``alfi_torch/csrc`` and print the seconds;
-   then build the solvers whose tables phases 3 and 3a read;
+2. build the CUDA kernels from ``alfi_torch/csrc`` (one nvcc per source,
+   started together) and print the seconds; then build the solvers whose
+   tables phases 3 to 3b read (the seconds include the merged level
+   operators' host patterns);
 3. hold the fused gather-GEMV-scatter kernel against its plain PyTorch
    version on the card at every 2D main-path shape (the bench config's K1
-   smoother, K1 Schoeberl and K2 tables of levels 2 and 1, and the nref=3
-   fine level's K1 and K2 tables), each bare and masked (the main path's
+   smoother and K1 Schoeberl tables of levels 2 and 1, and the nref=3
+   fine level's K1 table), each bare and masked (the main path's
    masks; the Schoeberl tables, which the main path calls bare, with
    their coarse-skeleton mask in and out), on random f64 inputs from
    ``numpy.random.default_rng(0)``:
@@ -22,21 +24,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the bound counts and the rate on the bytes loaded, and the device time
    of the source's other kernel (pair or strided) where the table allows
    both;
-3a. the same at the 3D shapes: the K1 smoother (m = 189), K1 Schoeberl
-   (m = 27) and K2 (nld = 42) tables of ldc3d [P2+FB]^3 baseN=4 nref=2,
-   levels 2 and 1 (level 1's tables are the fine tables of nref=1), and
-   the [P1+FB]^3 fine tables of the 3D step on its gmsh mesh (m = 201,
-   24, nld = 24); then ``torch.linalg.inv`` (the patch factorisation, a
-   library call) is timed at the 3D batches (4913, 189, 189) and
-   (729, 189, 189), beside its bound;
+3a. the same at the 3D shapes: the K1 smoother (m = 189) and K1
+   Schoeberl (m = 27) tables of ldc3d [P2+FB]^3 baseN=4 nref=2, levels 2
+   and 1 (level 1's tables are the fine tables of nref=1), and the
+   [P1+FB]^3 fine tables of the 3D step on its gmsh mesh (m = 201, 24);
 3b. the same at the Scott-Vogelius tables: the K1 macrostar smoother
    tables of the fine levels of phases 11 (2D, m = 62, the pair kernel)
-   and 12 (3D, m = 1590, the strided kernel), and both fine levels' K2
-   tables and KF tables (Burman's facet term, blocks over both cells of
-   an interior facet, 2 x nld = 24 in 2D, 120 in 3D), whose main-path
-   variant adds into K2's output; then ``torch.linalg.inv`` at both
-   macrostar batches, the bytes of the 3D inverse table and the peak
-   device memory of that call;
+   and 12 (3D, m = 1590, the strided kernel); then, for every level table
+   the main paths apply (the 2D headline's levels 2 and 1, nref=3's fine
+   level, the 3D scale row's levels 2 and 1, the step's level 1, the SV
+   fine levels of phases 11 and 12), the merged level operator: KA, the
+   assembly of the cell (and Burman facet) tensors into merged values,
+   and KM, its apply, each against its plain version (max relative error
+   <= 1e-13, two launches bitwise equal), with device times warm and
+   cold, the bound, the plain version, the library call on the same data
+   (``index_add_`` on KA's map; cuSPARSE on the merged operator), KM at
+   half and twice its lanes, and the blocked route beside it (the fused
+   kernel over the cell blocks, plus the facet blocks with Burman); then
+   ``torch.linalg.inv`` (the patch factorisation, a library call) at the
+   3D batches (4913, 189, 189) and (729, 189, 189) and both macrostar
+   batches, beside its bound, with the bytes of the 3D SV inverse table
+   and the peak device memory of that call;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -44,7 +52,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dofs, the configuration of ``bench.py``): warm up with Re=1, reset the
    state, time Re 1 -> 10 -> 100; every Re must converge, with 22 Krylov
    iterations and 7 Newton steps in all, and the main path must have
-   launched the kernel for K1 and for K2; then one Newton linear step is
+   launched the fused kernel for K1 and KM and KA at every level it
+   applies (and the blocked level matvec never); then one Newton linear
+   step is
    traced with torch.profiler (kernel count, device busy share, kernel
    time by name);
 6. the same problem at nref=3 (164,866 dofs) for Re 1 -> 10 must
@@ -56,7 +66,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    1000.  Every Re must converge to a finite state; Re 1, 10, 100 must
    take the JAX package's counts exactly, and Re 200-1000 its Newton
    count and at most its Krylov count plus one per Newton step; the
-   fused kernel must have been launched for K1 and K2.  One Newton
+   launches as in phase 5.  One Newton
    linear step of the Re=1000 solve is traced as in phase 5.  A second
    run of the same solver over the same ladder must load all 12
    checkpoints, solve nothing and reproduce every count;
@@ -81,24 +91,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    100, 200, ..., 1000, held to
    results/logs/sv_ldc2d_k2_nref2_re10000_cpu.log by phase 7's rule; the
    velocity of every Re must be pointwise divergence-free,
-   ``divergence_norm`` < 1e-8; K1, K2 and KF must have launched; one
-   Newton linear step at Re=1000 traced;
+   ``divergence_norm`` < 1e-8; the launches as in phase 5 (KM applies
+   the cell and facet terms merged); one Newton linear step at Re=1000
+   traced;
 12. Scott-Vogelius in 3D: ldc3d SV k=3, baseN=2, nref=1 (39,231 dofs),
    bary, macrostar (m = 1590), Burman 5e-3, smoothing 10, --restriction,
    Re 1, 10, 100, held to results/logs/sv_ldc3d_k3_nref1_re500.log
    (5/2, 5/2, 8/3) by the same rule; peak device memory printed;
 
-then print the kernel table as one JSON line (every table of phases 3
-and 3a in the variant its main path calls, with the launches of the
-phase that drives it: 7 for the 2D tables, 6 for nref=3, 9 and 10 for
-the 3D ones, 11 and 12 for the Scott-Vogelius ones) and, last, the
+then print the kernel table as one JSON line (every K1 table of phases
+3 to 3b in the variant its main path calls, and KM and KA of every level
+table, with the launches of the phase that drives it: 7 for the 2D
+tables, 6 for nref=3, 9 and 10 for the 3D ones, 11 and 12 for the
+Scott-Vogelius ones) and, last, the
 result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3b (the kernel
 rows and the K3 times) and prints no result line: for measurements of the
-kernel alone.
+kernels alone.
 """
 
 import json
@@ -177,13 +189,13 @@ FLUSH_BYTES = 128 << 20
 #: both kernels of the source (pair and strided) carry this in their name
 KERNEL_NAME = "gather_gemv_scatter"
 KERNEL_OF_PATH = {1: "pair", 2: "strided"}
+#: the merged level operator's apply (KM) and assembly (KA) kernels
+KM_NAME, KA_NAME = "level_apply_kernel", "level_assemble_kernel"
 PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
                "(pallas_call at :81; deleted in aaee1ce)")
-XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 (plain-XLA batch-major "
-                   "level_apply; no Pallas kernel)")
-XLA_FACET_APPLY = ("alfi_tpu/mg/velocity.py:449 (plain-XLA facet branch of "
-                   "level_apply; no Pallas kernel)")
-REPLACES = {"K1": PALLAS_GEMV, "K2": XLA_LEVEL_APPLY, "KF": XLA_FACET_APPLY}
+XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 and :449 (plain-XLA "
+                   "level_apply, cell and facet branches; no Pallas kernel)")
+REPLACES = {"K1": PALLAS_GEMV, "KM": XLA_LEVEL_APPLY, "KA": XLA_LEVEL_APPLY}
 
 
 def _median_ms(fn, reps=15, inner=20):
@@ -270,14 +282,13 @@ def _library_operator(op, A):
                                    (op.n, op.n))
 
 
-def _bound_bytes(op, accumulate=False):
+def _bound_bytes(op):
     """What one call on this table's data must move, each byte once, by
     part: the A entries whose row feeds a live output dof and whose
     column gathers a live dof (one f64 multiply-add each), the index
     table, x at the dofs gathered, out, the in-mask only where it zeroes
     a gathered entry, the out-mask, and the passthrough where the
-    out-mask is 0; in the accumulating mode (``accumulate``) out is read
-    and written where the out-mask is 1, and there is no passthrough."""
+    out-mask is 0."""
     import torch
 
     nb, m, _ = op.ashape
@@ -288,32 +299,68 @@ def _bound_bytes(op, accumulate=False):
         parts["in_mask"] = op.n
     if op.out_keep is not None:
         parts["out_mask"] = op.n
-        if accumulate:
-            parts["out"] = 16 * int(op.out_keep.sum())
-        else:
-            parts["passthrough"] = 8 * int((~op.out_keep).sum())
-    elif accumulate:
-        parts["out"] = 16 * op.n
+        parts["passthrough"] = 8 * int((~op.out_keep).sum())
     return parts
 
 
-def _bound(op, accumulate=False):
-    """(ms, "bytes" or "operations"): the least time of one call, the
-    larger of ``_bound_bytes`` over the memory rate and one f64
-    multiply-add per needed A entry over the f64 rate."""
-    parts = _bound_bytes(op, accumulate)
+def _bound_of(parts, ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes ``parts``
+    over the memory rate and ``ops`` f64 operations over the f64 rate."""
     t_bytes = sum(parts.values()) / HBM_BYTES_PER_S
-    t_ops = 2.0 * (parts["A"] // 8) / F64_FLOP_PER_S
+    t_ops = ops / F64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
+def _bound(op):
+    """The least time of one call: ``_bound_bytes`` against one f64
+    multiply-add per needed A entry."""
+    parts = _bound_bytes(op)
+    return _bound_of(parts, 2.0 * (parts["A"] // 8))
+
+
+def _merged_bound_bytes(op):
+    """What one KM call on a merged level operator must move, each byte
+    once: the merged values and their block columns, the row pointers,
+    x at the dofs gathered or passed through, the mask, out."""
+    import numpy as np
+
+    p, d = op.pattern, op.d
+    cols = np.unique(p.bcol).astype(np.int64)
+    xdofs = np.union1d((cols[:, None] * d + np.arange(d)).reshape(-1),
+                       np.flatnonzero(~p.keep))
+    return {"values": 8 * d * d * p.nnzb, "index": 4 * p.nnzb,
+            "rowptr": 4 * (p.nodes + 1), "x": 8 * len(xdofs), "mask": p.n,
+            "out": 8 * p.n}
+
+
+def _merged_bound(op):
+    """KM's least time: ``_merged_bound_bytes`` against one f64
+    multiply-add per merged value."""
+    return _bound_of(_merged_bound_bytes(op),
+                     2.0 * op.d * op.d * op.pattern.nnzb)
+
+
+def _assembly_bound_bytes(op):
+    """What one KA call must move, each byte once: every live block entry
+    (the sources), its map entry and the map's pointers, and the merged
+    values written."""
+    p = op.pattern
+    nvals = p.nnzb * op.d * op.d
+    return {"sources": 8 * p.nlive, "map": 4 * p.nlive + 4 * (nvals + 1),
+            "values": 8 * nvals}
+
+
+def _assembly_bound(op):
+    """KA's least time: ``_assembly_bound_bytes`` against one f64 add per
+    live source."""
+    return _bound_of(_assembly_bound_bytes(op), float(op.pattern.nlive))
+
+
+def _check_kernel(name, op, rng, flush, mask=None):
     """The fused kernel against its plain version on ``op``'s table, bare
     and masked (with ``op``'s masks, or ``mask`` in and out where the main
-    path calls ``op`` bare); with ``accumulate`` the masked variant adds
-    into a given out, as the main path calls a KF table; returns one
-    result dict per variant."""
+    path calls ``op`` bare); returns one result dict per variant."""
     import torch
 
     from alfi_torch.kernels import PAIR_MAX_M, GatherGemvScatter
@@ -348,24 +395,15 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
     lib_dev = _device_ms(library)
     out = []
     for masked, o in ((False, bare), (True, op)):
-        acc = accumulate and masked
-        args = (p,) if o.out_keep is not None and not acc else ()
-        # the accumulating mode adds into out: a fresh copy of p for the
-        # checks, one buffer that keeps growing for the timed loops
-        bufs = {"kernel": p.clone(), "plain": p.clone()}
+        args = (p,) if o.out_keep is not None else ()
 
-        def call(fn, key, fresh):
-            if not acc:
-                return fn(A, x, *args)
-            return fn(A, x, out=p.clone() if fresh else bufs[key])
+        def kernel():
+            return o(A, x, *args)
 
-        def kernel(fresh=False):
-            return call(o, "kernel", fresh)
+        def plain():
+            return o.plain(A, x, *args)
 
-        def plain(fresh=False):
-            return call(o.plain, "plain", fresh)
-
-        yk, yk2, yp = kernel(True), kernel(True), plain(True)
+        yk, yk2, yp = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         if not torch.equal(yk, yk2):
             raise AssertionError("%s: two launches differ" % name)
@@ -376,7 +414,7 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
                                  "%.0e" % (name, rel_err, REL_TOL))
         ms_p1, ms_k1 = _median_ms(plain), _median_ms(kernel)
         ms_k2, ms_p2 = _median_ms(kernel), _median_ms(plain)
-        bound_ms, bound_by = _bound(o, acc)
+        bound_ms, bound_by = _bound(o)
         dev_ms = _device_ms(kernel, only=KERNEL_NAME)
         cold_ms = _device_ms(kernel, only=KERNEL_NAME, before=flush)
         # the source's other kernel, where the table allows both (the
@@ -386,7 +424,7 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
         chosen = o.kernel_path()
         if m % 2 == 0 and m <= PAIR_MAX_M:
             o.path = 3 - chosen
-            y_other, y_other2 = kernel(True), kernel(True)
+            y_other, y_other2 = kernel(), kernel()
             torch.cuda.synchronize()
             other_err = float((y_other - yp).abs().max()) / max(
                 float(yp.abs().max()), 1e-300)
@@ -398,7 +436,6 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
             o.path = 0
         loaded, live = o.a_bytes()
         r = {"name": name, "shape": (nb, m), "masked": masked,
-             "accumulate": acc,
              "op": main_op if masked == main_masked else None,
              "kernel": KERNEL_OF_PATH[chosen],
              "abs_err": abs_err, "rel_err": rel_err,
@@ -411,8 +448,7 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
         print("%-22s %6d x %-3d %-6s %8.2e  %s %s (%s, cold %s, other %s) | "
               "%7.2f us %-5s %5s | A %.4f GB loaded, %.4f in the bound, "
               "%s TB/s | %s (%s) | %s (%s)" % (
-                  name, nb, m, ("adds" if acc else "masked") if masked
-                  else "bare", rel_err,
+                  name, nb, m, "masked" if masked else "bare", rel_err,
                   r["kernel"] + ("" if chosen == 1 else "/%d lanes"
                                  % (1 << o.lanes_log2)),
                   _fmt(r["ms"]), _fmt(dev_ms), _fmt(cold_ms),
@@ -425,6 +461,179 @@ def _check_kernel(name, op, rng, flush, mask=None, accumulate=False):
                   _fmt(lib_ms), _fmt(lib_dev)), flush=True)
         out.append(r)
     return out
+
+
+def _merged_library_operator(op, vals):
+    """The merged operator with its passthrough, keep * A + diag(1 -
+    keep), as one CSR matrix for cuSPARSE."""
+    import torch
+
+    d = op.d
+    e = torch.arange(vals.numel(), device=op.device)
+    blk = e // (d * d)
+    rows = op.brow[blk] * d + (e // d) % d
+    cols = op.bcol.long()[blk] * d + e % d
+    pas = torch.nonzero(~op.keep).reshape(-1)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([rows, pas]), torch.cat([cols, pas])]),
+        torch.cat([vals.reshape(-1), torch.ones(pas.numel(),
+                                               dtype=vals.dtype,
+                                               device=op.device)]),
+        (op.n, op.n)).coalesce()
+    crow = torch._convert_indices_from_coo_to_csr(coo.indices()[0], op.n)
+    return torch.sparse_csr_tensor(crow, coo.indices()[1], coo.values(),
+                                   (op.n, op.n))
+
+
+def _check_merged(name, vmg, l, rng, flush):
+    """KA and KM of level l's merged operator against their plain
+    versions on random cell (and facet) tensors and a random x: max
+    relative error <= REL_TOL, two launches bitwise equal; device times
+    (warm and with L2 cold), the bounds, the plain versions' and the
+    library calls' times (index_add_ on the same map; cuSPARSE on the same
+    merged operator), KM at half and twice its lanes, and the blocked
+    route beside it: the fused kernel over the cell blocks (K2) plus, with
+    facets, over the facet blocks.  Returns the (KM, KA) result dicts."""
+    import torch
+
+    from alfi_torch.kernels import GatherGemvScatter
+
+    op = vmg.level_ops[l]
+    dev = op.device
+    T = torch.as_tensor(rng.standard_normal(op.cell_shape), device=dev)
+    F = (None if op.facet_shape is None else
+         torch.as_tensor(rng.standard_normal(op.facet_shape), device=dev))
+    x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+
+    def ka():
+        return op.assemble(T, F)
+
+    def ka_plain():
+        return op.plain_assemble(T, F)
+
+    # the library call: one index_add_ of every block entry into its merged
+    # entry (a masked one into a dump slot), the sources concatenated ahead
+    src = T.reshape(-1) if F is None else torch.cat([T.reshape(-1),
+                                                     F.reshape(-1)])
+    p = op.pattern
+    nvals = p.nnzb * op.d * op.d
+    dest = torch.full((p.nsource,), nvals, dtype=torch.int64, device=dev)
+    dest[op.amap_src.long()] = torch.repeat_interleave(
+        torch.arange(nvals, device=dev), torch.diff(op.amap_ptr.long()))
+
+    def ka_library():
+        return src.new_zeros(nvals + 1).index_add_(0, dest, src)
+
+    va, va2, vp = ka(), ka(), ka_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(va, va2):
+        raise AssertionError("%s: two KA launches differ" % name)
+    ka_abs = float((va - vp).abs().max())
+    ka_rel = ka_abs / max(float(vp.abs().max()), 1e-300)
+    lib_err = float((ka_library()[:nvals] - vp.reshape(-1)).abs().max())
+    if not (ka_rel <= REL_TOL and lib_err <= 1e-12 * float(vp.abs().max())):
+        raise AssertionError("%s: KA vs plain max rel err %.3e (library "
+                             "%.3e)" % (name, ka_rel, lib_err))
+    ka_r = {"name": name + " KA", "kernel": "KA", "op": op,
+            "abs_err": ka_abs, "rel_err": ka_rel,
+            "dev_ms": _device_ms(ka, only=KA_NAME),
+            "cold_ms": _device_ms(ka, only=KA_NAME, before=flush),
+            "plain_dev_ms": _device_ms(ka_plain),
+            "library_dev_ms": _device_ms(ka_library)}
+    ka_r["bound_ms"], ka_r["bound_by"] = _assembly_bound(op)
+    print("%-24s KA %d sources -> %d merged entries (%.2f per entry; %d "
+          "block entries) %8.2e | %s (cold %s) ms | bound %.2f us %s, %s | "
+          "plain %s | index_add_ %s" % (
+              name, p.nlive, nvals, p.nlive / max(nvals, 1), p.nsource,
+              ka_rel, _fmt(ka_r["dev_ms"]), _fmt(ka_r["cold_ms"]),
+              1e3 * ka_r["bound_ms"], ka_r["bound_by"],
+              _share(ka_r["bound_ms"], ka_r["dev_ms"]),
+              _fmt(ka_r["plain_dev_ms"]), _fmt(ka_r["library_dev_ms"])),
+          flush=True)
+
+    vals = va
+    lib = _merged_library_operator(op, vals)
+
+    def km():
+        return op(vals, x)
+
+    def km_plain():
+        return op.plain(vals, x)
+
+    def library():
+        return lib @ x
+
+    yk, yk2, yp = km(), km(), km_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(yk, yk2):
+        raise AssertionError("%s: two KM launches differ" % name)
+    km_abs = float((yk - yp).abs().max())
+    km_rel = km_abs / max(float(yp.abs().max()), 1e-300)
+    lib_err = float((library() - yp).abs().max() / yp.abs().max())
+    if not (km_rel <= REL_TOL and lib_err <= 1e-12):
+        raise AssertionError("%s: KM vs plain max rel err %.3e (library "
+                             "%.3e)" % (name, km_rel, lib_err))
+    # KM at half and twice its lanes, held to the plain version too
+    own = op.lanes_log2
+    other = {}
+    for lanes in (own - 1, own + 1):
+        if 0 <= lanes <= 5:
+            op.lanes_log2 = lanes
+            y = km()
+            torch.cuda.synchronize()
+            if not float((y - yp).abs().max()) <= REL_TOL * float(
+                    yp.abs().max()):
+                raise AssertionError("%s: KM at %d lanes disagrees"
+                                     % (name, 1 << lanes))
+            other[1 << lanes] = _device_ms(km, only=KM_NAME)
+    op.lanes_log2 = own
+    # the blocked route on the same blocks: K2 over the cells, then the
+    # facet blocks through the same kernel (as a second masked launch)
+    keep = op.keep
+    blocked = [(GatherGemvScatter(vmg.levels[l].rows.cpu().numpy(), op.n,
+                                  "K2", in_mask=keep, out_mask=keep,
+                                  device=dev), T)]
+    if F is not None:
+        blocked.append((GatherGemvScatter(vmg.facet_rows[l], op.n, "K2",
+                                          in_mask=keep, out_mask=keep,
+                                          device=dev), F))
+    blocked_ms = []
+    for table, A in blocked:
+        blocked_ms.append(_device_ms(lambda: table(A, x, x),
+                                     only=KERNEL_NAME))
+    del blocked
+    loaded = op.value_bytes()
+    km_r = {"name": name + " KM", "kernel": "KM", "op": op,
+            "abs_err": km_abs, "rel_err": km_rel,
+            "ms": min(_median_ms(km), _median_ms(km)),
+            "dev_ms": _device_ms(km, only=KM_NAME),
+            "cold_ms": _device_ms(km, only=KM_NAME, before=flush),
+            "plain_dev_ms": _device_ms(km_plain),
+            "library_ms": _median_ms(library),
+            "library_dev_ms": _device_ms(library),
+            "blocked_dev_ms": (None if None in blocked_ms
+                               else sum(blocked_ms))}
+    km_r["bound_ms"], km_r["bound_by"] = _merged_bound(op)
+    print("%-24s KM %d nodes, %d blocks of %dx%d (merge %.2fx), %d lanes "
+          "%8.2e | %s ms eager, device %s (cold %s; lanes %s) | bound %.2f "
+          "us %s, %s | values+index %.4f GB, %s TB/s | plain %s | cuSPARSE "
+          "%s (%s) | blocked route %s (%s)" % (
+              name, p.nodes, p.nnzb, op.d, op.d, p.merge_factor,
+              1 << own, km_rel, _fmt(km_r["ms"]), _fmt(km_r["dev_ms"]),
+              _fmt(km_r["cold_ms"]),
+              ", ".join("%d: %s" % (g, _fmt(t)) for g, t in other.items()),
+              1e3 * km_r["bound_ms"], km_r["bound_by"],
+              _share(km_r["bound_ms"], km_r["dev_ms"]), loaded / 1e9,
+              "-" if not km_r["dev_ms"] else "%.2f" % (
+                  loaded / km_r["dev_ms"] / 1e9),
+              _fmt(km_r["plain_dev_ms"]), _fmt(km_r["library_ms"]),
+              _fmt(km_r["library_dev_ms"]), _fmt(km_r["blocked_dev_ms"]),
+              " + ".join(_fmt(t) for t in blocked_ms)), flush=True)
+    return km_r, ka_r
+
+
+def _share(bound_ms, ms):
+    return "-" if not ms else "%.0f%%" % (100.0 * bound_ms / ms)
 
 
 def _time_patch_inverses(dev, batches):
@@ -492,10 +701,9 @@ def _profile_linear_step(solver):
     busy = sum(us for _, us in kern) / 1e6
     print("profiled linear step: %d Krylov its, %.3f s wall (profiler on), "
           "%d kernels (%.0f per Krylov it), device busy %.3f s = %.1f%% of "
-          "wall; fused kernel launches %s"
+          "wall; kernel launches %s"
           % (its, wall, len(kern), len(kern) / max(its, 1), busy,
-             100.0 * busy / wall, dict(kernels.GatherGemvScatter.launches)),
-          flush=True)
+             100.0 * busy / wall, _launches()), flush=True)
     by_name = {}
     for kname, us in kern:
         n_us = by_name.setdefault(kname[:70], [0, 0.0])
@@ -504,13 +712,48 @@ def _profile_linear_step(solver):
     for kname, (cnt, us) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][1])[:10]:
         print("  %8.2f ms %6d x  %s" % (us / 1e3, cnt, kname))
-    fused = sum(us for kname, us in kern if KERNEL_NAME in kname) / 1e6
-    print("  the fused kernel: %.4f s = %.1f%% of device busy time"
-          % (fused, 100.0 * fused / max(busy, 1e-300)), flush=True)
+    for label, key in (("the fused kernel (K1)", KERNEL_NAME),
+                       ("KM", KM_NAME), ("KA", KA_NAME)):
+        t = sum(us for kname, us in kern if key in kname) / 1e6
+        print("  %s: %.4f s = %.1f%% of device busy time"
+              % (label, t, 100.0 * t / max(busy, 1e-300)), flush=True)
+
+
+def _launches():
+    """Kernel launches per use (K1, K2) and kernel (KM, KA) since the
+    last reset_launch_counts()."""
+    from alfi_torch import kernels
+
+    return {**kernels.GatherGemvScatter.launches,
+            **kernels.MergedLevelOperator.launches}
+
+
+def _table_launches():
+    """(id of a table, use or kernel) -> its launches since the last
+    reset_launch_counts()."""
+    from alfi_torch import kernels
+
+    out = {(id(t), t.use): t.launched
+           for t in kernels.GatherGemvScatter._tables_alive}
+    for op in kernels.MergedLevelOperator._tables_alive:
+        out.update(((id(op), k), v) for k, v in op.launched.items())
+    return out
+
+
+def _check_levels(label, solver, launches):
+    """Every applied level (1 and up) of the solver must have launched
+    KM and KA, and the blocked level matvec (K2) never."""
+    if launches["K2"]:
+        raise AssertionError("%s: the blocked level matvec ran" % label)
+    for l, op in enumerate(solver.vmg.level_ops[1:], 1):
+        if not (op.launched["KM"] > 0 and op.launched["KA"] > 0):
+            raise AssertionError("%s: level %d launched KM %d, KA %d times"
+                                 % (label, l, op.launched["KM"],
+                                    op.launched["KA"]))
 
 
 def _driver_sweep(label, solver, args, expected, exact, ndofs,
-                  uses=("K1", "K2"), state_check=None):
+                  state_check=None):
     """One continuation through the port's driver (run_solver with
     --checkpoint) in a temporary working directory, as phases 7, 9 and 10
     run it.  ``expected``: Re -> the JAX package's (Krylov, Newton); every
@@ -518,12 +761,14 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
     Re in ``exact`` and elsewhere the same Newton count and at most one
     more Krylov iteration per Newton step.  The launch counts are zeroed
     just before the sweep and read just after (returned per table, by
-    ``id``); every use in ``uses`` must have launched.
+    ``id`` and use); K1 must have launched, and KM and KA at every
+    applied level (``_check_levels``).
     ``state_check(re, u)``, when given, runs on each Re's checkpointed
     velocity (a numpy array) and raises if it fails.  Then one Newton
     linear step of the last Re is traced, and a second run over the
     checkpoints must load them all, solve nothing and reproduce the
     counts."""
+    import gc
     import tempfile
 
     import numpy as np
@@ -540,16 +785,21 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
+            # a solver deleted by an earlier phase sits in reference
+            # cycles (its multigrid and transfers point at each other)
+            # until the cyclic collector runs: collect it, so that the peak
+            # is this sweep's and not the collector's timing
+            gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             results = run_solver(solver, res, args)
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
-            launches = dict(kernels.GatherGemvScatter.launches)
-            per_table = {id(t): t.launched
-                         for t in kernels.GatherGemvScatter._tables_alive}
+            launches = _launches()
+            per_table = _table_launches()
             peak = torch.cuda.max_memory_allocated()
             chkdir = os.path.join("checkpoint", str(solver.Z.dim))
             for re in res:
@@ -565,9 +815,10 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
             counts = {re: (results[re]["linear_iter"],
                            results[re]["nonlinear_iter"]) for re in res}
             print("%s: %d dofs, Re %s -> %s (%d steps) in %.3f s; peak "
-                  "device memory %.3f GB (%d bytes)"
+                  "device memory %.3f GB (%d bytes; %.3f GB allocated at "
+                  "its start)"
                   % (label, solver.Z.dim, res[0], res[-1], len(res), total,
-                     peak / 1e9, peak), flush=True)
+                     peak / 1e9, peak, resident / 1e9), flush=True)
             print("%s seconds per Re: %s" % (label, ", ".join(
                 "%s: %.3f" % (re, 60.0 * results[re]["time"]) for re in res)))
             print("%s Krylov/Newton per Re (JAX package): %s"
@@ -577,11 +828,11 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
             print("%s kpn per Re: %s" % (label, ", ".join(
                 "%s: %.2f" % (re, counts[re][0] / counts[re][1])
                 for re in res)))
-            print("%s fused kernel launches per use: %s (%.1f and %.1f per "
-                  "Krylov iteration)"
+            print("%s kernel launches: %s (K1 %.1f and KM %.1f per Krylov "
+                  "iteration)"
                   % (label, launches,
                      launches["K1"] / sum(k for k, _ in counts.values()),
-                     launches["K2"] / sum(k for k, _ in counts.values())),
+                     launches["KM"] / sum(k for k, _ in counts.values())),
                   flush=True)
             for re in res:
                 (k, n), (kj, nj) = counts[re], expected[re]
@@ -591,11 +842,10 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
                     raise AssertionError(
                         "%s Re=%s: Krylov/Newton %d/%d against the "
                         "JAX package's %d/%d" % (label, re, k, n, kj, nj))
-            for use in uses:
-                if launches[use] <= 0:
-                    raise AssertionError("the fused kernel was not launched "
-                                         "for %s on the %s path"
-                                         % (use, label))
+            if launches["K1"] <= 0:
+                raise AssertionError("the fused kernel was not launched "
+                                     "for K1 on the %s path" % label)
+            _check_levels(label, solver, launches)
             _profile_linear_step(solver)
 
             # resume: the checkpoints are loaded, nothing is solved
@@ -676,10 +926,12 @@ def main(kernels_only=False):
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
 
-    # 2. build
+    # 2. build (both sources, one nvcc each, started together)
     t0 = time.perf_counter()
     kernels.load_library()
-    print("kernel build: %.2f s" % (time.perf_counter() - t0), flush=True)
+    print("kernel build: %.2f s (%s, %s)"
+          % (time.perf_counter() - t0, os.path.basename(kernels.SOURCE),
+             os.path.basename(kernels.LEVEL_SOURCE)), flush=True)
     for line in kernels.build_log.splitlines():
         if "ptxas info" in line:
             print("  " + line.strip())
@@ -697,8 +949,14 @@ def main(kernels_only=False):
         t0 = time.perf_counter()
         solver = build()
         torch.cuda.synchronize()
-        print("%s solver built: %d dofs, %.2f s"
-              % (label, solver.Z.dim, time.perf_counter() - t0), flush=True)
+        print("%s solver built: %d dofs, %.2f s; merged level operators "
+              "(blocks, merge factor, host seconds): %s"
+              % (label, solver.Z.dim, time.perf_counter() - t0, ", ".join(
+                  "L%d %d, %.2fx, %.2f s" % (l, op.pattern.nnzb,
+                                             op.pattern.merge_factor,
+                                             op.pattern.seconds)
+                  for l, op in enumerate(solver.vmg.level_ops))),
+              flush=True)
         return solver
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -728,30 +986,30 @@ def main(kernels_only=False):
 
     def tables(vmg, levels, tag=""):
         """(name, table, mask for the masked variant) of a hierarchy's K1
-        smoother, K1 Schoeberl and K2 tables at ``levels``."""
+        smoother and K1 Schoeberl tables at ``levels``."""
         out = [("K1 smoother %sL%d" % (tag, l), vmg.patch_solvers[l - 1][1],
                 None) for l in levels]
         out += [("K1 schoeberl %sL%d" % (tag, t.l + 1), t.papply, t.zmask)
                 for t in reversed(vmg.schoeberl) if t.l + 1 in levels]
-        out += [("K2 level %sL%d" % (tag, l), vmg.levels[l].matvec, None)
-                for l in levels]
         return out
 
     # 3. the fused kernel vs its plain version on the 2D main-path tables
     ops2d = tables(head.vmg, (2, 1))
-    ops2d += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None),
-              ("K2 level nref3", big.vmg.levels[-1].matvec, None)]
+    ops2d += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None)]
     # 3a. and on the 3D ones
     ops3d = tables(scale.vmg, (2, 1), "3D ") + tables(step.vmg, (1,),
                                                       "step ")
-    # 3b. and on the Scott-Vogelius ones (KF adds into K2's output)
+    # 3b. and on the Scott-Vogelius ones
     ops_sv = [("K1 macrostar SV L2", sv2d.vmg.patch_solvers[-1][1], None),
-              ("K2 level SV L2", sv2d.vmg.levels[-1].matvec, None),
-              ("KF facets SV L2", sv2d.vmg.facet_matvecs[-1], None),
               ("K1 macrostar SV 3D L1", sv3d.vmg.patch_solvers[-1][1],
-               None),
-              ("K2 level SV 3D L1", sv3d.vmg.levels[-1].matvec, None),
-              ("KF facets SV 3D L1", sv3d.vmg.facet_matvecs[-1], None)]
+               None)]
+    # the merged level operators (KA, KM) of the levels the main paths
+    # apply: the 2D headline's levels 2 and 1 and nref=3's fine level, the
+    # 3D scale row's levels 2 and 1, the step's, and both SV fine levels
+    levels = [("level L2", head.vmg, 2), ("level L1", head.vmg, 1),
+              ("level nref3", big.vmg, 3), ("level 3D L2", scale.vmg, 2),
+              ("level 3D L1", scale.vmg, 1), ("level step L1", step.vmg, 1),
+              ("level SV L2", sv2d.vmg, 2), ("level SV 3D L1", sv3d.vmg, 1)]
     flush_buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
                             device=dev)
     rng = np.random.default_rng(0)
@@ -761,14 +1019,20 @@ def main(kernels_only=False):
         "bytes of A | plain ms eager (device) | library ms eager (device)"))
     table = []
     for name, op, mask in ops2d + ops3d + ops_sv:
-        table += _check_kernel(name, op, rng, flush_buf.zero_, mask,
-                               accumulate=op.use == "KF")
+        table += _check_kernel(name, op, rng, flush_buf.zero_, mask)
         torch.cuda.empty_cache()
-    del flush_buf
+    for name, vmg, l in levels:
+        table += _check_merged(name, vmg, l, rng, flush_buf.zero_)
+        torch.cuda.empty_cache()
+    # the list holds every hierarchy: drop it, so that the solver a later
+    # phase deletes is freed and each sweep's peak is its own
+    del flush_buf, levels, vmg
     sv_batches = [(ps.npatches, ps.m) for ps in (sv2d.vmg.patchsets[-1],
                                                  sv3d.vmg.patchsets[-1])]
     _time_patch_inverses(dev, [(4913, 189), (729, 189)] + sv_batches)
     torch.cuda.empty_cache()
+    print("device memory allocated after the kernel rows: %.3f GB"
+          % (torch.cuda.memory_allocated() / 1e9), flush=True)
     if kernels_only:
         return
 
@@ -799,19 +1063,19 @@ def main(kernels_only=False):
     bench.z_last = bench.z
     kernels.reset_launch_counts()
     rows, t_bench = _solve_sweep(bench, BENCH_RES)
-    launches = dict(kernels.GatherGemvScatter.launches)
+    launches = _launches()
     krylov = sum(r[1] for r in rows)
     newton = sum(r[2] for r in rows)
     print("bench config: %d dofs, Re 1->10->100 in %.3f s, Krylov %d, "
-          "Newton %d, fused kernel launches per use %s"
+          "Newton %d, kernel launches %s"
           % (bench.Z.dim, t_bench, krylov, newton, launches), flush=True)
     if (krylov, newton) != BENCH_COUNTS:
         raise AssertionError("bench counts %d/%d, expected %d/%d"
                              % ((krylov, newton) + BENCH_COUNTS))
-    for use in ("K1", "K2"):
-        if launches[use] <= 0:
-            raise AssertionError("the fused kernel was not launched for %s "
-                                 "on the main path" % use)
+    if launches["K1"] <= 0:
+        raise AssertionError("the fused kernel was not launched for K1 on "
+                             "the main path")
+    _check_levels("bench config", bench, launches)
 
     # where the time goes: one Newton linear step of the Re=100 solve
     # (from the Re=10 state) under torch.profiler
@@ -834,8 +1098,8 @@ def main(kernels_only=False):
     kernels.reset_launch_counts()
     _, t_big = _solve_sweep(big, [1, 10])
     print("nref=3: Re 1->10 in %.3f s" % t_big, flush=True)
-    launched = {id(t): t.launched
-                for t in kernels.GatherGemvScatter._tables_alive}
+    _check_levels("nref=3", big, _launches())
+    launched = _table_launches()
     del big
     torch.cuda.empty_cache()
 
@@ -898,8 +1162,7 @@ def main(kernels_only=False):
 
     per_table = _driver_sweep(
         "SV headline protocol", sv2d, sv2d_args, SV2D_JAX, HEADLINE_EXACT,
-        SV2D_DOFS, uses=("K1", "K2", "KF"),
-        state_check=divergence_free(sv2d, True))
+        SV2D_DOFS, state_check=divergence_free(sv2d, True))
     launched.update((k, v) for k, v in per_table.items() if v)
     del sv2d
     torch.cuda.empty_cache()
@@ -907,25 +1170,32 @@ def main(kernels_only=False):
     # 12. Scott-Vogelius in 3D (macrostar patches of m = 1590)
     per_table = _driver_sweep(
         "SV 3D", sv3d, sv3d_args, SV3D_JAX, tuple(SV3D_JAX), SV3D_DOFS,
-        uses=("K1", "K2", "KF"), state_check=divergence_free(sv3d, False))
+        state_check=divergence_free(sv3d, False))
     launched.update((k, v) for k, v in per_table.items() if v)
 
-    src = os.path.relpath(kernels.SOURCE, here)
+    sources = {"K1": os.path.relpath(kernels.SOURCE, here),
+               "KM": os.path.relpath(kernels.LEVEL_SOURCE, here)}
+    sources["KA"] = sources["KM"]
     entries = []
     for r in table:
         if r["op"] is None:
             continue  # not the variant the main path calls
-        use = r["op"].use
-        n_launch = launched.get(id(r["op"]), 0)
+        use = r["kernel"] if r["kernel"] in ("KM", "KA") else r["op"].use
+        n_launch = launched.get((id(r["op"]), use), 0)
         if n_launch <= 0:
             raise AssertionError("%s: the main path never launched this "
                                  "table's kernel" % r["name"])
-        entries.append({
-            "name": "gather_gemv_scatter %s kernel (%s, %d x %d, %s)" % (
+        if use == "K1":
+            name = "gather_gemv_scatter %s kernel (%s, %d x %d, %s)" % (
                 r["kernel"], r["name"], r["shape"][0], r["shape"][1],
-                ("adds" if r["accumulate"] else "masked") if r["masked"]
-                else "bare"),
-            "route": "cuda", "source": src,
+                "masked" if r["masked"] else "bare")
+        else:
+            p = r["op"].pattern
+            name = "level_operator %s (%s, %d blocks of %dx%d)" % (
+                {"KM": "apply", "KA": "assembly"}[use], r["name"], p.nnzb,
+                p.d, p.d)
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[use],
             "replaces": REPLACES[use],
             "launches": n_launch,
             "max_abs_err": max(t["abs_err"] for t in table

@@ -13,10 +13,7 @@ tables of SV k=3 at baseN=1.
   matrices (1e-12), ``level_apply`` with facets (1e-12) and one FMG cycle
   (1e-7: explicit inverses at kappa ~ 1e8 against LU solves);
 * the twins of test_burman_pc.py's three tests, the solve with the JAX
-  package's counts;
-* the KF table's accumulating mode on the CPU (the card's test of the
-  kernel at these tables is in tests/test_torch_kernels_ref.py, which runs
-  without jax).
+  package's counts.
 """
 
 import jax
@@ -27,7 +24,6 @@ import torch
 
 from alfi_torch import ScottVogeliusSolver as TorchSV
 from alfi_torch import fem as tfem
-from alfi_torch import kernels
 from alfi_torch.fem.facets import InteriorFacets as TorchFacets
 from alfi_torch.mg.patches import FacetPatchTables
 from alfi_torch.mg.patches import assemble_patch_matrices as torch_apm
@@ -284,9 +280,8 @@ def test_level_apply_with_facets_matches_jax(solvers, states):
     v = np.random.default_rng(12).standard_normal((t.Z.V.ndof, 2))
     for l in range(2):
         nl = t.vmg.levels[l].V.ndof
-        out_t = t.vmg.level_apply(l, st["tensors"][l],
-                                  torch.as_tensor(v[:nl]),
-                                  ftensors=st["ftensors"][l])
+        vals = t.vmg.level_assemble(l, st["tensors"][l], st["ftensors"][l])
+        out_t = t.vmg.level_apply(l, vals, torch.as_tensor(v[:nl]))
         out_j = j.vmg.level_apply(l, sj["tensors"][l], jnp.asarray(v[:nl]),
                                   ftensors=sj["ftensors"][l])
         assert _rel(out_t, out_j) < 1e-12
@@ -319,8 +314,7 @@ def test_fine_level_operator_matches_jacobian(solvers):
     mask = t.bcset.mask[0]
     v = mask * torch.as_tensor(
         np.random.default_rng(3).standard_normal(t.z[0].shape))
-    lhs = vmg.level_apply(L, state["tensors"][L], v,
-                          ftensors=state["ftensors"][L])
+    lhs = vmg.level_apply(L, state["level_ops"][L], v)
     p0 = t.z[1]
     _, jv = torch.func.jvp(
         lambda u: t.residual_masked((u, p0), params)[0], (t.z[0],), (v,))
@@ -353,35 +347,6 @@ def test_patch_matrices_match_dense_restriction(solvers):
         sub = Adense[np.ix_(dofs, dofs)]
         got = Ap[p][: len(dofs), : len(dofs)]
         assert np.abs(got - sub).max() < 1e-10 * (1.0 + np.abs(sub).max())
-
-
-def test_facet_table_adds_into_the_cell_sum():
-    """The KF table's accumulating mode (out=): the masked facet sum is
-    added to out where the mask is 1, out kept where it is 0; a dof that
-    stands in both halves of a block gets both rows."""
-    rng = np.random.default_rng(13)
-    n, nb, m = 40, 30, 8
-    idx = rng.integers(0, n, size=(nb, m))
-    idx[:, m // 2] = idx[:, 0]  # a shared dof in both halves
-    mask = (rng.random(n) < 0.8).astype(float)
-    op = kernels.GatherGemvScatter(idx, n, "KF", in_mask=mask,
-                                   out_mask=mask, device="cpu")
-    A = rng.standard_normal((nb, m, m))
-    x = rng.standard_normal(n)
-    out0 = rng.standard_normal(n)
-    want = np.zeros(n)
-    xm = mask * x
-    for b in range(nb):
-        np.add.at(want, idx[b], A[b] @ xm[idx[b]])
-    want = np.where(mask == 1.0, out0 + want, out0)
-    out = torch.as_tensor(out0.copy())
-    got = op(torch.as_tensor(A), torch.as_tensor(x), out=out)
-    assert got is out
-    assert np.abs(got.numpy() - want).max() < 1e-12
-    with pytest.raises(ValueError, match="passthrough"):
-        op(torch.as_tensor(A), torch.as_tensor(x), torch.as_tensor(x),
-           out=out)
-    assert kernels.GatherGemvScatter.launches["KF"] == 0
 
 
 def test_burman_pc_solve_converges(solvers):

@@ -183,11 +183,16 @@ def test_h100_log_has_the_jax_counts():
     ("sv_ldc2d_k2_nref2_re10000.log", "sv_ldc2d_k2_nref2_re10000_cpu.log",
      102),
     ("sv_ldc3d_k3_nref1_re500.log", "sv_ldc3d_k3_nref1_re500.log", 7),
+    ("merged_sv_ldc2d_k2_nref1_re10000.log",
+     "sv_ldc2d_k2_nref1_re10000_cpu.log", 102),
+    ("merged_sv_ldc3d_k3_nref1_re500.log", "sv_ldc3d_k3_nref1_re500.log",
+     7),
 ])
 def test_h100_sv_logs_have_the_jax_counts(port_log, ref_log, n):
     """The port's Scott-Vogelius sweeps on the card (iters2dsv at nref 1
-    and 2 to Re 10,000, SV k=3 in 3D to Re 500; committed logs) against
-    the JAX package's logs: equal counts at every Re.  Most dict lines of
+    and 2 to Re 10,000, SV k=3 in 3D to Re 500; committed logs; the
+    ``merged_`` ones run the merged level operator) against the JAX
+    package's logs: equal counts at every Re.  Most dict lines of
     the JAX nref=2 log are table-only checkpoint rows (0/0); their counts
     are the ones its solves printed earlier in the same log."""
     from alfi_torch.examples.compare_iters import solve_records
@@ -522,6 +527,37 @@ def test_iters_harness_runs_the_sv_protocol(tmp_path, monkeypatch, capsys):
     log.write_text(out)
     assert solve_records(str(log)) == {1.0: (10, 2), 10.0: (9, 2)}
     assert "1\t& $1.56\\times 10^3$\t& 4.50\\\\" in out
+
+
+def test_h100_merged_3d_log_keeps_the_blocked_counts():
+    """ldc3d [P2+FB]^3 nref=1 to Re 5000 on the card, the merged level
+    operator (committed log) against the blocked route's run of the same
+    sweep: the new summation order moved no count at any of the 52 Re."""
+    from alfi_torch.examples.compare_iters import solve_records
+
+    merged, blocked = (solve_records(os.path.join(
+        REPO, "results", "torch_h100", name)) for name in (
+        "merged_iters_ldc3d_p2fb_nref1_re5000.log",
+        "iters_ldc3d_p2fb_nref1_re5000.log"))
+    assert len(merged) == len(blocked) == 52
+    assert merged == blocked
+
+
+def test_solve_records_of_a_log_without_its_table(tmp_path):
+    """A harness log that never reached its table (no dict lines, as the
+    JAX package's 3D logs that were cut and resumed) gives the counts its
+    solves printed, the last solve of an Re counting."""
+    from alfi_torch.examples.compare_iters import solve_records
+
+    log = tmp_path / "cut.log"
+    log.write_text(
+        "Solving for Re = 1\nNonlinear solve converged in 2 iterations\n"
+        "Time taken: 0.1 min in 5 iterations (2.50 Krylov iters per "
+        "Newton step)\nSolving for Re = 10\nNonlinear solve converged "
+        "in 3 iterations\nTime taken: 0.1 min in 7 iterations\n"
+        "Solving for Re = 10\nNonlinear solve converged in 2 iterations\n"
+        "Time taken: 0.1 min in 4 iterations\n")
+    assert solve_records(str(log)) == {1.0: (5, 2), 10.0: (4, 2)}
 
 
 def test_iters_harness_rejects_unported_problems():

@@ -2,9 +2,9 @@
 and a numpy reference, and the CUDA kernel against its plain version (on a
 card only).
 
-* K2, the level matvec: alfi_torch VelocityMG.level_apply (plain path on
-  the CPU) vs alfi_tpu VelocityMG.level_apply, normwise relative 1e-12
-  (summation order only).
+* the level operator: alfi_torch VelocityMG.level_apply on the merged
+  operator (plain path on the CPU) vs alfi_tpu VelocityMG.level_apply,
+  normwise relative 1e-12 (summation order only).
 * K1, the patch apply: explicit f64 inverses (the port) vs the JAX CPU
   path's LU solves, on the gamma=1e4 patch operators whose condition
   numbers reach ~1e8 (docs/DESIGN.md:34-44): normwise relative 1e-7.
@@ -67,7 +67,8 @@ def test_level_apply_matches_jax(solvers, jnp):
     nc, nld = lev.rows.shape
     T = rng.standard_normal((nc, nld, nld))
     v = rng.standard_normal((lev.V.ndof, 2))
-    out_t = t.vmg.level_apply(1, torch.as_tensor(T), torch.as_tensor(v))
+    out_t = t.vmg.level_apply(1, t.vmg.level_assemble(1, torch.as_tensor(T)),
+                              torch.as_tensor(v))
     out_j = j.vmg.level_apply(1, jnp.asarray(T), jnp.asarray(v))
     assert _rel(out_t, out_j) < 1e-12
 
@@ -330,7 +331,7 @@ def test_cpu_tensors_never_count_launches():
     A = torch.ones((2, 2, 2), dtype=torch.float64)
     out = op(A, torch.ones(3, dtype=torch.float64))
     np.testing.assert_array_equal(out.numpy(), [2.0, 4.0, 2.0])
-    assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0, "KF": 0}
+    assert kernels.GatherGemvScatter.launches == {"K1": 0, "K2": 0}
     assert op.launched == 0
 
 
@@ -417,7 +418,10 @@ def test_strided_kernel_loads_at_least_the_bound_on_k2(cavity3d, k):
     """K2: masked columns before the live extent are loaded (and read 0),
     so the bytes loaded are at least the bound's, for either kernel."""
     cs = _chip_smoke()
-    op = cavity3d[k].vmg.levels[1].matvec
+    lev = cavity3d[k].vmg.levels[1]
+    op = kernels.GatherGemvScatter(lev.rows.numpy(), lev.V.ndof * 3, "K2",
+                                   in_mask=lev.mask_flat,
+                                   out_mask=lev.mask_flat, device="cpu")
     assert op.in_keep is not None
     live = cs._bound_bytes(op)["A"]
     assert live == 8 * _live_entries(op)
@@ -612,9 +616,9 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
 def test_cuda_kernel_matches_plain_on_the_sv_tables():
     """On the card, at the Scott-Vogelius tables of ldc2d SV k=2 baseN=4
     nref=1 (bary, macrostar, Burman): the macrostar K1 table (m = 62, the
-    pair kernel and the strided one) and the facet table KF in its
-    accumulating mode (m = 24), against the plain version, bitwise equal
-    over two launches."""
+    pair kernel and the strided one) and the facet blocks (m = 24, the
+    blocked route chip_smoke.py times beside the merged level operator),
+    against the plain version, bitwise equal over two launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from alfi_torch import ScottVogeliusSolver
@@ -629,23 +633,19 @@ def test_cuda_kernel_matches_plain_on_the_sv_tables():
     mask = lev.mask_flat
     for idx, use, masks in (
             (sv.vmg.patchsets[0].dofs, "K1", {"out_mask": mask}),
-            (sv.vmg.facet_rows[-1], "KF", {"in_mask": mask,
+            (sv.vmg.facet_rows[-1], "K2", {"in_mask": mask,
                                            "out_mask": mask})):
         op = kernels.GatherGemvScatter(idx, lev.V.ndof * 2, use,
                                        device=dev, **masks)
         nb, m, _ = op.ashape
-        assert m == {"K1": 62, "KF": 24}[use]
+        assert m == {"K1": 62, "K2": 24}[use]
         A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev)
         x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
         base = torch.as_tensor(rng.standard_normal(op.n), device=dev)
         for path in (1, 2):
             op.path = path
-            if use == "KF":
-                yp = op.plain(A, x, out=base.clone())
-                y1, y2 = (op(A, x, out=base.clone()) for _ in range(2))
-            else:
-                yp = op.plain(A, x, base)
-                y1, y2 = op(A, x, base), op(A, x, base)
+            yp = op.plain(A, x, base)
+            y1, y2 = op(A, x, base), op(A, x, base)
             torch.cuda.synchronize()
             assert torch.equal(y1, y2)
             assert float((y1 - yp).abs().max() / yp.abs().max()) <= 1e-13
