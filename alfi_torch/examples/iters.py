@@ -9,8 +9,9 @@ Usage (the papers' protocol, on the card):
       --mh uniform --stabilisation-type supg --restriction \\
       --nref-start 1 --nref-end 2 --re-max 10000 [--checkpoint]
 
-``--problem`` is one of ldc2d, ldc3d, bfs2d, bfs3d (the steps read a
-gmsh file given by ``--mesh``, or generate their mesh without one).
+``--problem`` is one of ldc2d, ldc3d, bfs2d, bfs3d, dfg (the steps and
+dfg read a gmsh file given by ``--mesh``, or generate their mesh without
+one; dfg's generated channel has ``--n`` cells per unit length).
 ``--device`` (default ``cuda``) picks the torch device; ``--device cpu``
 runs the same protocol on the host.
 """
@@ -19,6 +20,7 @@ import math
 
 from alfi_torch import get_default_parser, get_solver, run_solver
 from alfi_torch.problems import (
+    DfgBenchmarkProblem,
     ThreeDimBackwardsFacingStepProblem,
     ThreeDimLidDrivenCavityProblem,
     TwoDimBackwardsFacingStepProblem,
@@ -53,6 +55,7 @@ def main(argv=None):
     parser.add_argument("--re-max", type=int, default=10000)
     parser.add_argument("--singular", dest="singular", default=False,
                         action="store_true")
+    parser.add_argument("--n", type=int, default=40)
     parser.add_argument("--device", type=str, default="cuda")
     args, _ = parser.parse_known_args(argv)
 
@@ -66,9 +69,7 @@ def main(argv=None):
     elif args.problem == "bfs3d":
         problem = ThreeDimBackwardsFacingStepProblem(args.mesh)
     else:
-        raise NotImplementedError(
-            "--problem %s is not ported yet: ROADMAP.md Queue 1 item 10"
-            % args.problem)
+        problem = DfgBenchmarkProblem(args.mesh, n=args.n)
 
     res = reynolds_ladder(args.re_max, bfs=args.problem.startswith("bfs"))
     results, dofs = {}, {}

@@ -26,6 +26,10 @@ class CellGeometry:
             return torch.as_tensor(a, dtype=real_dtype, device=device)
 
         self.dim = mesh.dim
+        #: (nc, d) first vertex and (nc, d, d) Jacobian of the affine map
+        #: x = v0 + J xi
+        self.v0 = dev(v[:, 0, :])
+        self.J = dev(J)
         self.jinv = dev(jinv)
         self.detj = dev(detj)
         self.vol = dev(detj / factorial(mesh.dim))
@@ -33,3 +37,9 @@ class CellGeometry:
         # coefficient's h)
         diff = v[:, :, None, :] - v[:, None, :, :]
         self.h = dev(np.sqrt((diff**2).sum(-1)).max(axis=(1, 2)))
+
+    def quad_points_physical(self, ref_pts):
+        """(nc, nq, d) physical coordinates of reference points."""
+        ref = torch.as_tensor(np.asarray(ref_pts), dtype=real_dtype,
+                              device=self.J.device)
+        return self.v0[:, None, :] + torch.einsum("cde,qe->cqd", self.J, ref)

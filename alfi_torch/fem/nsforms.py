@@ -8,7 +8,8 @@ Hand-derived element kernels for the reference's fixed form set:
 * ``sv`` residual (alfi/solver.py:613-623): the same with the exact
   gamma (div u, div v) term,
 
-plus the optional ``stabilisation`` hook (SUPG/GLS or Burman,
+plus the optional forcing ``rhs`` (the manufactured solutions,
+``problems/mms.py``) and ``stabilisation`` hook (SUPG/GLS or Burman,
 alfi_torch/stabilisation.py).
 
 Every per-cell quantity is one einsum over a leading cell axis (the JAX
@@ -47,16 +48,14 @@ class Tabulation:
 class NSForm:
     """Residual of the AL Navier-Stokes system for one (V, Q) pair.
 
-    graddiv_mode: 'cell_avg' (Pk-P0) or 'exact' (Scott-Vogelius); forcing
-    (``rhs``, the MMS problems) is not ported yet.
+    graddiv_mode: 'cell_avg' (Pk-P0) or 'exact' (Scott-Vogelius).
+    rhs: optional forcing, rhs(x (n, d), params) -> (f_v (n, d), f_q (n,)).
     """
 
     def __init__(self, V, Q, graddiv_mode, quad_degree=None, rhs=None, *,
                  device):
         if graddiv_mode not in ("cell_avg", "exact"):
             raise ValueError("graddiv_mode %r" % graddiv_mode)
-        if rhs is not None:
-            raise NotImplementedError("forcing terms are not ported yet")
         self.V = V
         self.Q = Q
         mesh = V.mesh
@@ -86,6 +85,12 @@ class NSForm:
                                   self.geom.jinv)
         self._static = None
         self._gd_factors = None
+        #: optional forcing (see the class docstring), evaluated at the
+        #: velocity rule's physical points ``xq`` (nc, nq, d)
+        self.rhs = rhs
+        self.xq = (self.geom.quad_points_physical(self.tab_v.ref_pts)
+                   if rhs is not None else None)
+        self._forcing_cache = (None, None)
         #: optional extra residual hook: fn(z, params) -> (Sv, Sq),
         #: added by :meth:`residual` (the solver's stabilisation)
         self.stabilisation = None
@@ -124,6 +129,22 @@ class NSForm:
                                         self.tab_v.phi)
         return rv
 
+    def forcing(self, params):
+        """(f_v (nc, nq, d), f_q (nc, nq)) at the quadrature points, or
+        None without ``rhs``.  It depends on the params' scalars only
+        (nu, advect), so it is evaluated once per set of them and kept:
+        every Jacobian action of a Newton step reads the same one."""
+        if self.rhs is None:
+            return None
+        key = tuple(sorted((k, float(v)) for k, v in params.items()
+                           if isinstance(v, (int, float))))
+        if self._forcing_cache[0] != key:
+            nc, nq, d = self.xq.shape
+            f_v, f_q = self.rhs(self.xq.reshape(-1, d), params)
+            self._forcing_cache = (key, (f_v.reshape(nc, nq, d),
+                                         f_q.reshape(nc, nq)))
+        return self._forcing_cache[1]
+
     def cell_residual(self, u_loc, p_loc, params):
         """Full mixed residual per cell -> (rv (nc, nloc_v, d),
         rq (nc, nloc_q))."""
@@ -136,6 +157,12 @@ class NSForm:
         rv = rv - torch.einsum("cq,cq,cqld->cld", wdet, p_q, gtest)
         # -(div u, q)
         rq = -torch.einsum("cq,cq,ql->cl", wdet, divu, self.tab_q.phi)
+        f = self.forcing(params)
+        if f is not None:
+            rv = rv - torch.einsum("cq,cqd,ql->cld", wdet, f[0],
+                                   self.tab_v.phi)
+            rq = rq - torch.einsum("cq,cq,ql->cl", wdet, f[1],
+                                   self.tab_q.phi)
         return rv, rq
 
     # ------------------------------------------------------------------
@@ -206,6 +233,22 @@ class NSForm:
         advect = params.get("advect", 0.0)
         return (params["nu"] * K + params["gamma"] * G
                 + advect * self.advection_element_tensors(wind))
+
+    def mixed_element_tensors(self, z, params):
+        """Per-cell Jacobian blocks of the mixed residual at state z:
+        (Juu, Jup, Jpu, Jpp) of shapes (nc, nlv*d, nlv*d), (nc, nlv*d,
+        nlq), (nc, nlq, nlv*d), (nc, nlq, nlq).  The closed forms of
+        :meth:`cell_residual`'s Jacobian (the JAX package takes jacfwd of
+        it): Juu the velocity block at wind u, Jup[(l,i), m] =
+        -int phi_m d_i phi_l, Jpu its transpose, Jpp zero; the forcing
+        does not depend on z, and no stabilisation term enters."""
+        Juu = self.velocity_element_tensors(params, z[0])
+        nc, nq, nl, d = self.gtest.shape
+        Jup = -torch.einsum("cq,qm,cqli->clim", self.wdet, self.tab_q.phi,
+                            self.gtest).reshape(nc, nl * d, -1)
+        Jpu = Jup.transpose(1, 2).contiguous()
+        nlq = Jup.shape[2]
+        return Juu, Jup, Jpu, Juu.new_zeros((nc, nlq, nlq))
 
     # ------------------------------------------------------------------
     # gamma-split structure: per-cell factors of the grad-div term

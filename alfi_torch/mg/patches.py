@@ -12,13 +12,18 @@ alfi/solver.py:313-344):
   tensors used everywhere else, inverted in f64, and applied additively
   (no partition of unity, matching patch_pc_patch_partition_of_unity
   False) by the hand-written gather-GEMV-scatter kernels (kernel K1,
-  alfi_torch/kernels.py).
+  alfi_torch/kernels.py), or multiplicatively: conflict-free colours
+  swept in the relaxation direction, one K1 table per colour and a
+  residual update between colours (PCPatch's multiplicative +
+  symmetrise_sweep, alfi/solver.py:321-328).
 
 Padding goes to dump slots (row m of an (m+1)-sized accumulator, flat dof
 index ndof*d, which the kernels read as 0) so every shape is static.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -234,6 +239,17 @@ class PatchSet:
         #: device -> (cells, flat index) of contract_patch_tensors
         self._contract_cache = {}
 
+    def permuted(self, order):
+        """The same patches in the order ``order`` (a permutation of the
+        patch indices): every per-patch table reordered, none shared."""
+        ps = copy.copy(self)
+        for name in ("dofs", "cells", "l2p", "active", "sizes"):
+            setattr(ps, name, getattr(self, name)[order])
+        if getattr(self, "seed_points", None) is not None:
+            ps.seed_points = self.seed_points[order]
+        ps._contract_cache = {}
+        return ps
+
 
 def patch_facet_tables(patchset, facets, space):
     """Host tables mapping interior-facet Jacobians into patch
@@ -284,6 +300,36 @@ def patch_facet_tables(patchset, facets, space):
     queries = fdofs[pfacets]  # (np, mfp, 2nld)
     fl2p = _rowwise_member_index(patchset.dofs, queries, dump=patchset.m)
     return pfacets, fl2p.astype(index_dtype)
+
+
+def direction_order(points, spec):
+    """Lexicographic sweep order from a relaxation-direction spec like
+    "0+:1-" (alfi/relaxation.py:88-108): sort by axis 0 ascending, then
+    axis 1 descending."""
+    keys = []
+    for part in spec.split(":"):
+        axis = int(part[:-1])
+        sgn = 1.0 if part[-1] == "+" else -1.0
+        keys.append(sgn * points[:, axis])
+    return np.lexsort(tuple(reversed(keys)))
+
+
+def color_patchset(patchset, direction=None):
+    """Conflict-free coloring of a PatchSet (shared-dof graph), visited
+    in the sweep direction so colors respect the downstream ordering.
+    Returns (colors (np,), ncolors)."""
+    from ..native import greedy_color
+
+    dofs = patchset.dofs
+    active = patchset.active
+    counts = active.sum(axis=1)
+    csr_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    csr_vals = dofs[active].astype(np.int64)
+    order = None
+    if direction is not None and getattr(patchset, "seed_points",
+                                         None) is not None:
+        order = direction_order(patchset.seed_points, direction)
+    return greedy_color(csr_off, csr_vals, patchset.nflat, order=order)
 
 
 def _merge_scalar_dofs(sdofs, sizes, extra):
@@ -460,9 +506,78 @@ def build_patch_solver(patchset, *, out_mask=None, device):
     needs no mask; an ``out_mask`` selects ``passthrough`` at its 0s.
     """
 
+    return make_patch_factor(patchset), GatherGemvScatter(
+        patchset.dofs, patchset.nflat, "K1", out_mask=out_mask,
+        device=device)
+
+
+def make_patch_factor(patchset):
+    """factor(tensors (nc, nld, nld)) -> (np, m, m) explicit inverses of
+    the patch matrices summed from the whole cell tensors."""
+
     def factor(tensors):
         return patch_inverses(assemble_patch_matrices(patchset,
                                                       tensors)).contiguous()
 
-    return factor, GatherGemvScatter(patchset.dofs, patchset.nflat, "K1",
-                                     out_mask=out_mask, device=device)
+    return factor
+
+
+class MultiplicativeSweep:
+    """The ordered multiplicative patch sweep of one PatchSet, as a
+    sequence of conflict-free additive sub-sweeps (one per colour) with
+    residual updates between them (the JAX package's
+    ``build_multiplicative_solver``).
+
+    ``patchset`` holds the patches in colour order (colour c is the
+    slice ``bounds[c]:bounds[c+1]``), so the inverses that
+    :func:`build_patch_solver`'s factor returns for it per Newton step
+    hold each colour as a contiguous view: no gather of the inverse
+    table per step.  Each colour has its own K1 table
+    (:class:`GatherGemvScatter`); no two patches of a colour share a dof,
+    so each dof's CSR list holds at most one slot."""
+
+    def __init__(self, patchset, bounds, *, device):
+        self.patchset = patchset
+        self.bounds = [int(b) for b in bounds]
+        ncolors = len(self.bounds) - 1
+        self.ncolors = ncolors
+        #: per colour its K1 table
+        self.tables = [
+            GatherGemvScatter(patchset.dofs[self.bounds[c]:
+                                            self.bounds[c + 1]],
+                              patchset.nflat, "K1", device=device)
+            for c in range(ncolors)]
+        seq = list(range(ncolors))
+        #: the colours in sweep order: forth, then back (symmetrised, as
+        #: PCPatch's symmetrise_sweep, alfi/solver.py:321-328)
+        self.seq = seq + seq[::-1]
+
+    def __call__(self, inv, b, Aop):
+        """The sweep from a zero initial guess: for each colour c of
+        ``seq``, r = b - Aop(x) (r = b for the first) and x += K1_c(r),
+        with K1_c the colour's patch inverses ``inv[bounds[c]:
+        bounds[c+1]]``.  ``b``, ``Aop`` flat; returns x flat, zero on
+        the dofs no patch holds."""
+        x = None
+        for c in self.seq:
+            r = b if x is None else b - Aop(x)
+            y = self.tables[c](inv[self.bounds[c]:self.bounds[c + 1]], r)
+            x = y if x is None else x + y
+        return x
+
+
+def build_multiplicative_solver(patchset, direction=None, *, device):
+    """Ordered multiplicative patch sweep (PCPatch's multiplicative +
+    symmetrise_sweep, alfi/solver.py:321-328) over ``patchset``,
+    coloured conflict-free in the relaxation ``direction``.
+
+    Returns (ordered, factor, apply): ``ordered`` the PatchSet permuted
+    into colour order once on the host, ``factor(tensors)`` its explicit
+    patch inverses (build_patch_solver's), ``apply(inv, b_flat,
+    Aop_flat)`` the sweep (:class:`MultiplicativeSweep`)."""
+    colors, ncolors = color_patchset(patchset, direction)
+    order = np.argsort(colors, kind="stable")
+    bounds = np.searchsorted(colors[order], np.arange(ncolors + 1))
+    ordered = patchset.permuted(order)
+    return ordered, make_patch_factor(ordered), MultiplicativeSweep(
+        ordered, bounds, device=device)

@@ -16,9 +16,11 @@ facet tensors) into one merged level operator, which every level apply of
 that step reads with kernel KM; the patch smoother runs kernel K1
 (alfi_torch/kernels.py).
 
-Ported choices: star and macrostar patches, additive composition,
-Schoeberl transfers, FMG cycle, dense coarse LU, SUPG/GLS terms in the
-level and patch operators, and Burman's facet terms there (SV).
+Ported choices: star and macrostar patches, additive composition or
+multiplicative colour sweeps (one K1 table per colour, a KM residual
+update between colours), Schoeberl transfers, FMG cycle, dense coarse
+LU, SUPG/GLS terms in the level and patch operators, and Burman's facet
+terms there (SV).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..stabilisation import BurmanStabilisation, make_stabilisation
 from .patches import (
     FacetPatchTables,
     assemble_patch_matrices,
+    build_multiplicative_solver,
     build_patch_solver,
     contract_patch_facet_tensors,
     macrostar_patches,
@@ -61,6 +64,8 @@ class MGLevel:
         self.form = form
         self.mask_u = mask_u  # (ndof, d)
         self.mask_flat = mask_u.reshape(-1)
+        #: the mask as bool, True on free dofs
+        self.keep = self.mask_flat != 0
         #: (nc, nloc*d) flattened dof rows
         self.rows = torch.as_tensor(rows, dtype=torch.int64, device=device)
 
@@ -129,6 +134,8 @@ class VelocityMG:
             injection(mh, l, spaces[l + 1], spaces[l], device=self.device)
             for l in range(self.nlevels - 1)
         ]
+        self.patch_composition = solver.patch_composition
+        direction = problem.relaxation_direction()
         self.patch_solvers = []
         self.patchsets = []
         self.factor_parts = []
@@ -137,10 +144,19 @@ class VelocityMG:
         for l in range(1, self.nlevels):
             lev = self.levels[l]
             ps = patches(lev.V, lev.mask_flat.cpu().numpy())
+            if self.patch_composition == "multiplicative":
+                # the patches in colour order from here on; their
+                # matrices are summed from the whole cell tensors, as
+                # the JAX package does for this composition
+                ps, factor, sweep = build_multiplicative_solver(
+                    ps, direction=direction, device=self.device)
+                self.patch_solvers.append((factor, sweep))
+                self.factor_parts.append(None)
+            else:
+                self.patch_solvers.append(build_patch_solver(
+                    ps, out_mask=lev.mask_flat, device=self.device))
+                self.factor_parts.append(make_patch_factor_parts(ps))
             self.patchsets.append(ps)
-            self.patch_solvers.append(build_patch_solver(
-                ps, out_mask=lev.mask_flat, device=self.device))
-            self.factor_parts.append(make_patch_factor_parts(ps))
         self.schoeberl = [
             SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)
         ]
@@ -313,6 +329,8 @@ class VelocityMG:
             patch_lufacs = [
                 self.factor_parts[l - 1](static["levels"][l - 1],
                                          N_els[l], params)
+                if self.factor_parts[l - 1] is not None
+                else self.patch_solvers[l - 1][0](tensors[l])
                 for l in range(1, self.nlevels)
             ]
         lev0 = self.levels[0]
@@ -332,10 +350,22 @@ class VelocityMG:
         }
 
     def _smoother_pc(self, l, state):
-        """mask * M (mask * r) + (1 - mask) * r, M the additive patch
-        inverse, in one call of kernel K1."""
+        """mask * M (mask * r) + (1 - mask) * r: M the additive patch
+        inverse, in one call of kernel K1; or the multiplicative sweep,
+        one K1 call per colour visit and a KM residual update between
+        visits (the sweep's x is zero on masked dofs)."""
         inv = state["patch_lufacs"][l - 1]
         _, papply = self.patch_solvers[l - 1]
+        if self.patch_composition == "multiplicative":
+            vals, op = state["level_ops"][l], self.level_ops[l]
+            keep = self.levels[l].keep
+
+            def pc(r):
+                r0 = r.reshape(-1)
+                x = papply(inv, r0, lambda v: op(vals, v))
+                return torch.where(keep, x, r0).reshape(-1, self.d)
+
+            return pc
 
         def pc(r):
             r0 = r.reshape(-1)

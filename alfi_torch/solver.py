@@ -1,11 +1,16 @@
 """Reynolds-robust Navier-Stokes solvers (the reference's alfi/solver.py),
 ported from the JAX package's ``solver.py`` to eager PyTorch.
 
-The port has the flagship mode:
+The port has the modes
 
-* ``almg`` — Newton-FGMRES with the block-Schur PC; velocity block by one
-  full-multigrid cycle with patch smoothers and Schoeberl transfers
-  (alfi/solver.py:353-379),
+* ``lu``    — full-system dense LU per Newton step (MUMPS analogue,
+              alfi/solver.py:396-403), with the pressure pinned when the
+              problem has a null space (:182-189);
+* ``allu``  — Newton-FGMRES with the block-Schur PC; velocity block by
+              dense LU (:346-352);
+* ``almg``  — the same, velocity block by one full-multigrid cycle with
+              patch smoothers (additive, or multiplicative colour sweeps)
+              and Schoeberl transfers (:353-379),
 
 on ``ConstantPressureSolver`` ([Pk]^d - P0) and ``ScottVogeliusSolver``
 ([Pk]^d - DG(k-1), exact grad-div), the uniform, bary and uniformbary
@@ -34,7 +39,14 @@ from .fem import (
 )
 from .solvers.fieldsplit import SchurPC, pressure_nullspace_projector
 from .solvers.krylov import fgmres
-from .solvers.linear import make_jacobian_matvec
+from .solvers.linear import (
+    assemble_dense_mixed,
+    assemble_dense_velocity,
+    flatten_mixed,
+    make_jacobian_matvec,
+    refined_lu_solve_closure,
+    unflatten_mixed,
+)
 from .solvers.newton import newton
 from .stabilisation import make_stabilisation
 from .utils.events import timed_function, timed_region
@@ -56,16 +68,18 @@ class NavierStokesSolver:
                  restriction=False, smoothing=None,
                  rebalance_vertices=False, hierarchy_callback=None,
                  high_accuracy=False, verbose=True, *, device="cuda"):
-        if solver_type != "almg":
+        if solver_type in ("alamg", "simple", "lsc"):
             raise NotImplementedError(
-                "solver_type %r is not ported yet (only almg): ROADMAP.md "
-                "Queue 1 item 10" % solver_type)
+                "solver_type %r is not ported yet: ROADMAP.md Queue 1 "
+                "item 10f" % solver_type)
+        if solver_type not in ("lu", "allu", "almg"):
+            raise ValueError("solver_type %r" % solver_type)
+        if patch_composition not in ("additive", "multiplicative"):
+            raise ValueError("patch_composition %r" % patch_composition)
         # each kwarg of the reference the port has not ported yet takes
         # only the reference's default; use_mkl is accepted and unused,
         # as in the reference
         for bad, what, item in [
-                (patch_composition != "additive",
-                 "patch_composition %r" % patch_composition, "10d"),
                 (nref_vis != 0, "nref_vis %r (visprolong)" % nref_vis,
                  "10h"),
                 (rebalance_vertices, "rebalance_vertices", "12")]:
@@ -124,8 +138,11 @@ class NavierStokesSolver:
             print("Number of velocity degrees of freedom: %s"
                   % (Z.V.ndof * Z.V.value_size))
 
-        self.bcset = BCSet(Z, problem.bcs(Z), device=self.device)
-        self.nsp = problem.has_nullspace()
+        has_nsp = problem.has_nullspace()
+        pin = has_nsp and solver_type == "lu"
+        self.bcset = BCSet(Z, problem.bcs(Z), pin_pressure=pin,
+                           device=self.device)
+        self.nsp = has_nsp and not pin
 
         self.form = self.make_form()
         self.area = float(self.form.area())
@@ -135,8 +152,7 @@ class NavierStokesSolver:
         self.stabilisation = None
         self._setup_stabilisation()
         self._tolerances()
-        self._linear_step = self._build_almg_step(
-            pressure_nullspace_projector(Z) if self.nsp else None)
+        self._build_step_functions()
 
     # ------------------------------------------------------------------
     # subclass hooks
@@ -180,6 +196,43 @@ class NavierStokesSolver:
 
     def residual_masked(self, z, params):
         return self.bcset.zero_rows(self.form.residual(z, params))
+
+    def _build_step_functions(self):
+        form, bcset, Z = self.form, self.bcset, self.Z
+        tol = self.tolerances
+        project = pressure_nullspace_projector(Z) if self.nsp else None
+        # the transfer operators of almg depend on (nu, gamma) only and
+        # are built once per Re; the direct modes have none
+        self._transfer_setup = lambda params: None
+
+        if self.solver_type == "lu":
+            def lin(z, F, params, tstate):
+                A = assemble_dense_mixed(form, z, params, bcset)
+                solve = refined_lu_solve_closure(
+                    A, rtol=min(tol["ksp_rtol"], 1e-12))
+                x = solve(-flatten_mixed(F))
+                return bcset.zero(unflatten_mixed(x, Z)), 1
+        elif self.solver_type == "allu":
+            mask_u = bcset.mask[0]
+            d = self.tdim
+
+            def lin(z, F, params, tstate):
+                Av = assemble_dense_velocity(form, z[0], params, mask_u)
+                flat_solve = refined_lu_solve_closure(Av, rtol=1e-10)
+
+                def solve_A(rv):
+                    return flat_solve(rv.reshape(-1)).reshape(-1, d)
+
+                pc = SchurPC(form, mask_u, solve_A).make_apply(params)
+                J = make_jacobian_matvec(form.residual, bcset, z, params)
+                dz, info = fgmres(
+                    J, tscale(-1.0, F), pc=pc, rtol=tol["ksp_rtol"],
+                    atol=tol["ksp_atol"], maxit=500, restart=30,
+                    project=project)
+                return bcset.zero(dz), info["iters"]
+        else:
+            lin = self._build_almg_step(project)
+        self._linear_step = lin
 
     def _build_almg_step(self, project):
         from .mg.velocity import VelocityMG

@@ -6,7 +6,8 @@
   (``_ExplicitInverseFactorization``).  Every smoother or transfer
   application is then one batched GEMV: the hand-written fused
   gather-GEMV-scatter kernel (alfi_torch/kernels.py).
-* coarse grid: one LU with partial pivoting, solved per application.
+* coarse grid, and the whole system of the direct modes ``lu`` and
+  ``allu``: one LU with partial pivoting, solved per application.
 
 Both factorisations are library calls (``torch.linalg``), as the JAX
 package leaves them to XLA.  kappa(A) ~ gamma/nu * h^-2 reaches 1e7-1e9,
@@ -27,12 +28,21 @@ def patch_inverses(A):
     return torch.linalg.inv(A)
 
 
-def coarse_factor(A):
-    """Dense LU factorisation (LU, pivots) of one (N, N) matrix."""
-    return torch.linalg.lu_factor(A)
+def coarse_factor(A, overwrite=False):
+    """Dense LU factorisation of one (N, N) matrix: (LU, pivots,
+    adjoint).  With ``overwrite`` the factors take A's own buffer: A^T,
+    a column-major view of the row-major A, is factored in place (no
+    copy; the direct modes' matrices reach 13.8 GB at the bench config),
+    and the solve then takes the adjoint."""
+    if not overwrite:
+        return (*torch.linalg.lu_factor(A), False)
+    At = A.mT
+    piv = torch.empty(A.shape[0], dtype=torch.int32, device=A.device)
+    LU, piv = torch.linalg.lu_factor(At, out=(At, piv))
+    return LU, piv, True
 
 
 def coarse_solve(fac, b):
     """Solve with a :func:`coarse_factor` result; b is (N,)."""
-    LU, piv = fac
-    return torch.linalg.lu_solve(LU, piv, b[:, None])[:, 0]
+    LU, piv, adjoint = fac
+    return torch.linalg.lu_solve(LU, piv, b[:, None], adjoint=adjoint)[:, 0]

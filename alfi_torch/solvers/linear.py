@@ -1,18 +1,37 @@
-"""Linearised operators and dense assembly for the mixed system.
+"""Linearised operators, dense assembly and direct solves for the mixed
+system (the reference's "lu"/"allu" branches, alfi/solver.py:396-421).
 
 * the matrix-free Jacobian action is ``torch.func.jvp`` of the residual
   (the JAX package uses ``jax.linearize``, which evaluates the primal
   once; ``jvp`` evaluates it again on every call — one extra residual
   per outer Krylov iteration);
-* dense velocity operators are assembled from per-cell element tensors
-  and, with Burman's stabilisation, per-interior-facet tensors (the MG
-  coarse grid), with BC rows/cols eliminated to identity.
+* dense operators are assembled from per-cell element tensors (the whole
+  mixed Jacobian for ``lu``, the velocity block for ``allu`` and the MG
+  coarse grid) and, with Burman's stabilisation, per-interior-facet
+  tensors, with BC rows/cols eliminated to identity.  Each is built in
+  one (N, N) buffer, the elimination in place: at the bench config the
+  mixed matrix alone is 13.8 GB in f64;
+* the direct solves factor that buffer in place with cuSOLVER's LU
+  (``solvers/batched_lu.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .batched_lu import coarse_factor, coarse_solve
+
+
+def flatten_mixed(z):
+    """(u, p) -> one flat vector [u dofs (dof*d + comp) | p dofs]."""
+    u, p = z
+    return torch.cat([u.reshape(-1), p])
+
+
+def unflatten_mixed(x, Z):
+    nV = Z.V.ndof * Z.V.value_size
+    return (x[:nV].reshape(Z.V.ndof, Z.V.value_size), x[nV:])
 
 
 def make_jacobian_matvec(residual_fn, bcset, z, params):
@@ -42,6 +61,50 @@ def vector_rows(space):
         cd.shape[0], -1)
 
 
+def _scatter_dense(A, blocks):
+    """Add per-entity dense blocks into the (N, N) buffer A in place;
+    ``blocks``: (row table (ne, a) host int, col table (ne, b) host int,
+    values (ne, a, b))."""
+    N = A.shape[0]
+    flat = A.view(-1)
+    for rows, cols, T in blocks:
+        rows = torch.as_tensor(rows, device=A.device)
+        cols = torch.as_tensor(cols, device=A.device)
+        idx = (rows[:, :, None] * N + cols[:, None, :]).reshape(-1)
+        flat.index_add_(0, idx, T.reshape(-1))
+
+
+def _eliminate(A, m):
+    """m A m + diag(1 - m), in place: BC rows/cols to identity."""
+    A.mul_(m[:, None]).mul_(m[None, :])
+    A.diagonal().add_(1.0 - m)
+    return A
+
+
+def assemble_dense_mixed(form, z, params, bcset):
+    """Global dense Jacobian of the mixed residual at z, BC-eliminated
+    (the ``lu`` mode's matrix).  Layout: [u dofs (dof*d + comp) | p
+    dofs]; the cell Jacobian blocks are :meth:`NSForm.mixed_element_tensors`
+    (no stabilisation term, as in the JAX package)."""
+    Juu, Jup, Jpu, Jpp = form.mixed_element_tensors(z, params)
+    nV = form.V.ndof * form.dim
+    N = nV + form.Q.ndof
+    rv = vector_rows(form.V)
+    rq = nV + np.asarray(form.Q.cell_dofs, dtype=np.int64)
+    A = torch.zeros((N, N), dtype=Juu.dtype, device=Juu.device)
+    _scatter_dense(A, [(rv, rv, Juu), (rv, rq, Jup), (rq, rv, Jpu),
+                       (rq, rq, Jpp)])
+    return _eliminate(A, flatten_mixed(bcset.mask))
+
+
+def assemble_dense_velocity(form, wind, params, mask_u):
+    """Dense velocity-block Jacobian (viscous + grad-div + linearised
+    advection at ``wind``, no stabilisation term), BC-eliminated: the
+    ``allu`` mode's matrix."""
+    T = form.velocity_element_tensors(params, wind)  # (nc, nlv*d, nlv*d)
+    return assemble_dense_from_tensors(form, T, mask_u)
+
+
 def assemble_dense_from_tensors(form, T, mask_u, facet_tensors=None,
                                 facet_rows=None):
     """Dense (N, N) velocity operator from per-cell tensors T
@@ -50,15 +113,28 @@ def assemble_dense_from_tensors(form, T, mask_u, facet_tensors=None,
     host table ``facet_rows`` (nif, 2*nld)); BC rows/cols eliminated to
     identity."""
     N = form.V.ndof * form.dim
-
-    def flat(rows):
-        rows = torch.as_tensor(rows, device=T.device)
-        return (rows[:, :, None] * N + rows[:, None, :]).reshape(-1)
-
-    A = torch.zeros((N * N,), dtype=T.dtype, device=T.device).index_add(
-        0, flat(vector_rows(form.V)), T.reshape(-1))
+    rows = vector_rows(form.V)
+    A = torch.zeros((N, N), dtype=T.dtype, device=T.device)
+    blocks = [(rows, rows, T)]
     if facet_tensors is not None:
-        A = A.index_add(0, flat(facet_rows), facet_tensors.reshape(-1))
-    A = A.reshape(N, N)
-    m = mask_u.reshape(-1)
-    return m[:, None] * A * m[None, :] + torch.diag(1.0 - m)
+        blocks.append((facet_rows, facet_rows, facet_tensors))
+    _scatter_dense(A, blocks)
+    return _eliminate(A, mask_u.reshape(-1))
+
+
+def lu_solve_closure(A):
+    """Factor A once (LU with partial pivoting, f64, in A's own buffer:
+    A is overwritten) and return x -> A^{-1} x on flat vectors."""
+    fac = coarse_factor(A, overwrite=True)
+    return lambda b: coarse_solve(fac, b)
+
+
+def refined_lu_solve_closure(A, rtol=1e-12):
+    """The full-accuracy direct solve (the MUMPS analogue,
+    alfi/solver.py:396-403).  The factorisation is f64, so this is a
+    plain factor and solve (the JAX package refines iteratively only
+    when its factorisation is forced to f32, a TPU option the port does
+    not have); ``rtol`` is accepted for the JAX signature.  A is
+    overwritten."""
+    del rtol
+    return lu_solve_closure(A)

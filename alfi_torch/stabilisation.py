@@ -20,8 +20,9 @@ The hook returns a full (Rv, Rq) contribution (GLS touches the pressure
 rows through grad q).  ``velocity_element_tensors`` gives the per-cell
 velocity-block Jacobian of the same residual for the multigrid level and
 patch operators; :class:`BurmanStabilisation` gives per-interior-facet
-Jacobians instead.  Forcing terms are not ported (``NSForm`` rejects
-``rhs``).
+Jacobians instead.  With a forcing (``NSForm.rhs``, the manufactured
+solutions) the strong residual is Lu - f; the SUPG test direction depends
+on the state, so f enters the Jacobian too.
 """
 
 from __future__ import annotations
@@ -67,10 +68,17 @@ class ShakibSUPG:
         return (4.0 * w2 / h2
                 + self.magic * (4.0 * nu / h2) ** 2) ** (-0.5)
 
+    def _forcing_v(self, params):
+        """The form's velocity forcing at the quadrature points (nc, nq,
+        d), or None."""
+        f = self.form.forcing(params)
+        return None if f is None else f[0]
+
     def residual_local(self, u_loc, p_loc, w_loc, jinv, detj, h, params,
-                       aux):
+                       aux, f_v=None):
         """Per-cell stabilisation residual from explicit per-cell batches:
-        (rv_loc (nc, nl, d), rq_loc (nc, nlq) or None), not advect-scaled.
+        (rv_loc (nc, nl, d), rq_loc (nc, nlq) or None), not advect-scaled;
+        ``f_v`` the forcing at the quadrature points (nc, nq, d) or None.
         The basis index l is contracted first, so the (nc, nq, nl, d, d)
         physical-hessian batch never materialises."""
         tv = self.form.tab_v
@@ -87,6 +95,8 @@ class ShakibSUPG:
         gp = torch.einsum("qle,cej,cl->cqj", gq_ref, jinv, p_loc)
         Lu = -nu * visc + advect * torch.einsum(
             "cqij,cqj->cqi", gu, u_q) + gp
+        if f_v is not None:
+            Lu = Lu - f_v
         wdet = tv.w[None, :] * detj[:, None]
         beta = self._beta_batch(u_q, h, wdet, params, aux)
         coef = self.weight * wdet * beta  # (nc, nq)
@@ -117,17 +127,38 @@ class ShakibSUPG:
                                   gq_ref, jinv)
         return rv_loc, rq_loc
 
+    def residual_chunk(self):
+        """Cells per chunk of :meth:`residual`: about 512 MB for its
+        largest batch, the (cells, nq, d, d, d) physical hessians of u
+        (5.3 GB at once for the 3D MMS study at nref 3, whose jvp did not
+        fit in 80 GB beside the multigrid state)."""
+        tv = self.form.tab_v
+        return max(1, (512 << 20) // (tv.nq * self.form.dim ** 3 * 8))
+
     def residual(self, z, params):
-        """Assembled (Rv, Rq), not advect-scaled."""
+        """Assembled (Rv, Rq), not advect-scaled; the cells in chunks of
+        :meth:`residual_chunk`, each cell's terms its own, so that the
+        peak of the batches (and of their tangents under the Jacobian's
+        jvp) is one chunk's."""
         form = self.form
         geom = form.geom
         u, p = z
         u_loc = u[form.cd_v]
+        p_loc = p[form.cd_q]
         w_loc = (params["wind"][form.cd_v] if self.mode == "gls"
                  else torch.zeros_like(u_loc))
-        rv_loc, rq_loc = self.residual_local(
-            u_loc, p[form.cd_q], w_loc, geom.jinv, geom.detj, self.h,
-            params, self.aux_global(params))
+        aux, f_v = self.aux_global(params), self._forcing_v(params)
+        chunk = self.residual_chunk()
+        parts = [
+            self.residual_local(
+                u_loc[c:c + chunk], p_loc[c:c + chunk], w_loc[c:c + chunk],
+                geom.jinv[c:c + chunk], geom.detj[c:c + chunk],
+                self.h[c:c + chunk], params, aux,
+                None if f_v is None else f_v[c:c + chunk])
+            for c in range(0, u_loc.shape[0], chunk)]
+        rv_loc = torch.cat([rv for rv, _ in parts])
+        rq_loc = (None if parts[0][1] is None
+                  else torch.cat([rq for _, rq in parts]))
         Rv = form._sum_v(rv_loc, u)
         Rq = (form._sum_q(rq_loc, p) if rq_loc is not None
               else torch.zeros_like(p))
@@ -161,27 +192,30 @@ class ShakibSUPG:
         geom = form.geom
         return self.velocity_element_tensors_from(
             params, u_loc, p[form.cd_q], wind_loc, geom.jinv, geom.detj,
-            self.h, self.aux_global(params))
+            self.h, self.aux_global(params), self._forcing_v(params))
 
     def velocity_element_tensors_from(self, params, u_loc, p_loc,
-                                      wind_loc, jinv, detj, h, aux):
-        """The same per-cell Jacobians from explicit per-cell batches.
-        SUPG with the Shakib coefficient (the production path) uses the
+                                      wind_loc, jinv, detj, h, aux,
+                                      f_v=None):
+        """The same per-cell Jacobians from explicit per-cell batches
+        (``f_v``: the forcing at the quadrature points, or None).  SUPG
+        with the Shakib coefficient (the production path) uses the
         hand-derived product rule of :meth:`_vet_supg_analytic`; GLS and
         Turek use jacfwd of a per-cell residual."""
         if self.mode == "supg" and type(self) is ShakibSUPG:
             return self._vet_supg_analytic(params, u_loc, p_loc, jinv,
-                                           detj, h)
+                                           detj, h, f_v)
         return self._vet_jacfwd(params, u_loc, p_loc, wind_loc, jinv,
-                                detj, h, aux)
+                                detj, h, aux, f_v)
 
     def _vet_supg_analytic(self, params, u_loc, p_loc, jinv, detj, h,
-                           chunk=None):
+                           f_v=None, chunk=None):
         """Analytic per-cell SUPG velocity-block Jacobian.
 
         rv[l,i] = sum_q coef(q) Lu[q,i] at[q,l] with
           coef = weight * w_q * detj * beta(u),
-          Lu   = -nu*(lap u + grad div u) + advect*(grad u) u + grad p,
+          Lu   = -nu*(lap u + grad div u) + advect*(grad u) u + grad p
+                 (- f with a forcing),
           at   = (grad phi_l) . u_q.
         The product rule in ul[m,n] gives five terms (A: dcoef, B1/B3:
         delta_in viscous and advective parts, B2: basis-hessian part, B4:
@@ -202,7 +236,7 @@ class ShakibSUPG:
         d = form.dim
         eye = torch.eye(d, dtype=u_loc.dtype, device=u_loc.device)
 
-        def chunk_J(ul, pl, ji, dj, hc):
+        def chunk_J(ul, pl, ji, dj, hc, fc):
             u_q = torch.einsum("ql,cld->cqd", phi, ul)
             g = torch.einsum("qle,cej->cqlj", gphi, ji)
             at = torch.einsum("cqlj,cqj->cql", g, u_q)
@@ -217,6 +251,8 @@ class ShakibSUPG:
             gp = torch.einsum("qle,cej,cl->cqj", gq_ref, ji, pl)
             Lu = (-nu * visc
                   + advect * torch.einsum("cqij,cqj->cqi", gu, u_q) + gp)
+            if fc is not None:
+                Lu = Lu - fc
             wdet = wq[None, :] * dj[:, None]
             h2 = (hc ** 2)[:, None]
             w2 = torch.einsum("cqd,cqd->cq", u_q, u_q)
@@ -251,12 +287,13 @@ class ShakibSUPG:
 
         J = torch.cat([
             chunk_J(u_loc[c:c + chunk], p_loc[c:c + chunk],
-                    jinv[c:c + chunk], detj[c:c + chunk], h[c:c + chunk])
+                    jinv[c:c + chunk], detj[c:c + chunk], h[c:c + chunk],
+                    None if f_v is None else f_v[c:c + chunk])
             for c in range(0, nc, chunk)])
         return J.reshape(nc, nl * d, nl * d)
 
     def _vet_jacfwd(self, params, u_loc, p_loc, wind_loc, jinv, detj, h,
-                    aux):
+                    aux, f_v=None):
         """Per-cell Jacobians by torch.func.jacfwd (GLS and Turek)."""
         tv = self.form.tab_v
         nu, advect = params["nu"], params["advect"]
@@ -264,7 +301,10 @@ class ShakibSUPG:
         href, gq_ref = self.href, self.gq_ref
         gls = self.mode == "gls"
 
-        def cell_rv(ul, pl, wl, ji, dj, hc):
+        if f_v is None:
+            f_v = u_loc.new_zeros((u_loc.shape[0], tv.nq, u_loc.shape[2]))
+
+        def cell_rv(ul, pl, wl, ji, dj, hc, fq):
             u_q = torch.einsum("ql,ld->qd", phi, ul)
             g = torch.einsum("qle,ej->qlj", gphi, ji)
             gu = torch.einsum("qlj,li->qij", g, ul)
@@ -279,7 +319,8 @@ class ShakibSUPG:
             visc = lap_u + graddiv_u
             gp = torch.einsum("qle,ej,l->qj", gq_ref, ji, pl)
             Lu = (-nu * visc
-                  + advect * torch.einsum("qij,qj->qi", gu, u_q) + gp)
+                  + advect * torch.einsum("qij,qj->qi", gu, u_q) + gp
+                  - fq)
             beta = self._beta_cell(u_q, hc, params, aux)
             coef = self.weight * (wq * dj) * beta  # (nq,)
             if gls:
@@ -295,7 +336,7 @@ class ShakibSUPG:
             return torch.einsum("q,qi,ql->li", coef, Lu, adv_test)
 
         J = torch.func.vmap(torch.func.jacfwd(cell_rv, argnums=0))(
-            u_loc, p_loc, wind_loc, jinv, detj, h)
+            u_loc, p_loc, wind_loc, jinv, detj, h, f_v)
         nc, nl, d = J.shape[0], J.shape[1], J.shape[2]
         return J.reshape(nc, nl * d, nl * d)
 

@@ -45,6 +45,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    3D batches (4913, 189, 189) and (729, 189, 189) and both macrostar
    batches, beside its bound, with the bytes of the 3D SV inverse table
    and the peak device memory of that call;
+3c. the same at the per-colour K1 tables of the multiplicative sweep
+   (phase 16's solvers: the bench config's levels 2 and 1 and the 3D
+   cavity baseN=2 nref=1's level 1), each as its sweep calls it (bare),
+   with the number of colours and the launches per symmetrised sweep;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -98,17 +102,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bary, macrostar (m = 1590), Burman 5e-3, smoothing 10, --restriction,
    Re 1, 10, 100, held to results/logs/sv_ldc3d_k3_nref1_re500.log
    (5/2, 5/2, 8/3) by the same rule; peak device memory printed;
+13. the direct modes at the bench config, Re 1 -> 10 -> 100: ``lu``
+   (the dense mixed Jacobian, 13.8 GB in f64, factored in place by
+   cuSOLVER's LU, pressure pinned) must take the Newton counts 2, 2, 3 of
+   results/logs/lu_anchor.log; ``allu`` (the dense velocity block, 8.9
+   GB, under the Schur PC and FGMRES) must converge at each Re; its
+   velocity within 1e-6 (max abs) of lu's and of phase 5's almg at every
+   Re; the seconds of one assembly, factorisation and solve, and each
+   mode's peak device memory printed;
+14. the MMS convergence study through ``alfi_torch.examples.mms`` at the
+   widths of its committed JAX logs: [P2]^2-P0 almg, baseN=8, nref 1 -> 3
+   (2,690 / 10,498 / 41,474 dofs), the harness's 10 Re, with the
+   convergence orders of results/logs/mms2d_pkp0_nref3.log within 1e-3
+   and at every (nref, Re) the Krylov/Newton counts of the current JAX
+   package (its CPU log under results/torch_h100/; the committed log's
+   counts are an older JAX package's) by phase 7's rule, exact to Re 100;
+   then Scott-Vogelius (bary, macrostar; 10,882 / 43,266 / 172,546 dofs)
+   the same way against results/logs/mms2d_sv_nref3.log, with |div u_h| <
+   1e-8 at every solve; K1, KM and KA must have launched;
+15. the DFG cylinder (the configuration of
+   results/logs/dfg_pkp0_nref1_re500.log: k=2, almg, [P2]^2-P0, uniform,
+   SUPG, star, --restriction, nref=1, n=40, 56,736 dofs) through the
+   driver as phase 7, Re 1, 10, 20, 50, 100, 200, with that log's counts
+   at every Re;
+16. multiplicative patch sweeps (one K1 table per colour, a KM residual
+   update between colours): the bench config, Re 1 -> 10 -> 100, and the
+   3D cavity baseN=2 nref=1, with the counts of the JAX package's CPU
+   logs (results/torch_h100/iters_ldc2d_nref2_re100_multiplicative_jax_cpu.log
+   and iters_ldc3d_p2fb_nref1_re100_multiplicative_jax_cpu.log); K1 and KM
+   launches per Krylov iteration printed;
 
 then print the kernel table as one JSON line (every K1 table of phases
-3 to 3b in the variant its main path calls, and KM and KA of every level
+3 to 3c in the variant its main path calls, and KM and KA of every level
 table, with the launches of the phase that drives it: 7 for the 2D
 tables, 6 for nref=3, 9 and 10 for the 3D ones, 11 and 12 for the
-Scott-Vogelius ones) and, last, the
+Scott-Vogelius ones, 16 for the colour tables) and, last, the
 result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 3b (the kernel
+``python3 chip_smoke.py --kernels-only`` stops after phase 3c (the kernel
 rows and the K3 times) and prints no result line: for measurements of the
 kernels alone.
 """
@@ -177,6 +210,47 @@ SV3D_JAX = {1: (5, 2), 10: (5, 2), 100: (8, 3)}
 SV3D_DOFS = 39231
 #: the pointwise divergence the SV velocity must stay under
 SV_DIV_TOL = 1e-8
+#: the direct solve's Newton counts at the bench config, Re 1, 10, 100
+#: (results/logs/lu_anchor.log, a host direct solve)
+LU_NEWTON = [2, 2, 3]
+#: allu's velocity against lu's and almg's, max abs (the rule of
+#: tests/test_almg.py::test_almg_matches_lu)
+DIRECT_TOL = 1e-6
+#: the MMS study (examples/Makefile mms2dpkp0, mms2dsv) at the width of
+#: the committed logs results/logs/mms2d_{pkp0,sv}_nref3.log, whose first
+#: level has 2,690 and 10,882 dofs: baseN=8, nref 1 -> 3.  The counts of
+#: those logs are an older JAX package's; the current one takes other
+#: counts on the same solves (its CPU logs under results/torch_h100/),
+#: and the port is held to those, the orders to the committed logs'.
+MMS_RUNS = [
+    ("MMS [P2]^2-P0", ["--dim", "2", "--discretisation", "pkp0", "--mh",
+                       "uniform", "--k", "2", "--baseN", "8", "--nref", "3",
+                       "--solver-type", "almg"],
+     os.path.join("results", "torch_h100", "mms2d_pkp0_nref3_jax_cpu.log"),
+     os.path.join("results", "logs", "mms2d_pkp0_nref3.log"), None),
+    ("MMS SV", ["--dim", "2", "--discretisation", "sv", "--mh", "bary",
+                "--patch", "macro", "--k", "2", "--baseN", "8", "--nref",
+                "3", "--solver-type", "almg"],
+     os.path.join("results", "torch_h100", "mms2d_sv_nref3_jax_cpu.log"),
+     os.path.join("results", "logs", "mms2d_sv_nref3.log"), SV_DIV_TOL)]
+#: the Re at which the MMS counts must equal the JAX package's exactly;
+#: elsewhere phase 7's rule
+MMS_EXACT = (1, 9, 10, 50, 90, 100)
+#: the convergence orders must match the logs' to this
+MMS_ORDER_TOL = 1e-3
+#: the DFG cylinder (scripts/queue.py:131-135) and the counts of
+#: results/logs/dfg_pkp0_nref1_re500.log to Re 200
+DFG_ARGV = ["--discretisation", "pkp0", "--mh", "uniform", "--k", "2",
+            "--nref", "1", "--stabilisation-type", "supg", "--patch",
+            "star", "--restriction", "--checkpoint"]
+DFG_JAX = {1: (6, 2), 10: (14, 3), 20: (15, 3), 50: (19, 4), 100: (24, 4),
+           200: (51, 6)}
+DFG_N = 40
+DFG_DOFS = 56736
+#: multiplicative sweeps: the JAX package's CPU counts at the bench
+#: config and at the 3D cavity baseN=2 nref=1 (results/torch_h100/)
+MULT_JAX = [(6, 2), (5, 2), (8, 3)]
+MULT3D_JAX = [(3, 2), (3, 2), (4, 3)]
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -357,10 +431,11 @@ def _assembly_bound(op):
     return _bound_of(_assembly_bound_bytes(op), float(op.pattern.nlive))
 
 
-def _check_kernel(name, op, rng, flush, mask=None):
+def _check_kernel(name, op, rng, flush, mask=None, bare_only=False):
     """The fused kernel against its plain version on ``op``'s table, bare
     and masked (with ``op``'s masks, or ``mask`` in and out where the main
-    path calls ``op`` bare); returns one result dict per variant."""
+    path calls ``op`` bare; only bare with ``bare_only``); returns one
+    result dict per variant."""
     import torch
 
     from alfi_torch.kernels import PAIR_MAX_M, GatherGemvScatter
@@ -394,7 +469,8 @@ def _check_kernel(name, op, rng, flush, mask=None):
     lib_ms = _median_ms(library)
     lib_dev = _device_ms(library)
     out = []
-    for masked, o in ((False, bare), (True, op)):
+    variants = ((False, bare),) if bare_only else ((False, bare), (True, op))
+    for masked, o in variants:
         args = (p,) if o.out_keep is not None else ()
 
         def kernel():
@@ -872,7 +948,10 @@ def _driver_sweep(label, solver, args, expected, exact, ndofs,
     return per_table
 
 
-def _solve_sweep(solver, res):
+def _solve_sweep(solver, res, keep=None):
+    """Solve each Re of ``res`` in turn; every Re must converge to a
+    finite state.  Returns (rows, seconds); the velocity of each Re is
+    appended to ``keep`` (on the host) when given."""
     import torch
 
     rows, t_all = [], 0.0
@@ -883,6 +962,8 @@ def _solve_sweep(solver, res):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         t_all += dt
+        if keep is not None:
+            keep.append(z[0].cpu())
         finite = all(bool(torch.isfinite(x).all()) for x in z)
         rows.append((re, info["linear_iter"], info["nonlinear_iter"], dt,
                      solver.residual_no_graddiv))
@@ -892,6 +973,171 @@ def _solve_sweep(solver, res):
             raise AssertionError("Re=%s did not converge (finite=%s)"
                                  % (re, finite))
     return rows, t_all
+
+
+def _log_solves(path):
+    """(Krylov, Newton) of every solve a solver log records, in order."""
+    import re as _re
+
+    out, newton = [], None
+    with open(path) as f:
+        for line in f:
+            m = _re.search(r"Nonlinear solve \S+ in (\d+) iterations", line)
+            if m:
+                newton = int(m.group(1))
+            m = _re.search(r"Time taken: .* in (\d+) iterations", line)
+            if m:
+                out.append((int(m.group(1)), newton))
+    return out
+
+
+def _log_orders(path):
+    """The convergence orders an MMS log prints, in order (per Re: the
+    velocity's, then the pressure's)."""
+    import numpy as np
+
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("convergence orders:"):
+                out.append(np.array(line.split("[", 1)[1].split("]")[0]
+                                    .split(), dtype=float))
+    return out
+
+
+def _mms_phase(label, argv, counts_log, orders_log, div_tol):
+    """Phase 14: one MMS study through alfi_torch.examples.mms, its
+    solver output kept off the console.  The counts of every (nref, Re)
+    are held to ``counts_log`` (exact at MMS_EXACT, else phase 7's rule),
+    the convergence orders to ``orders_log``'s within MMS_ORDER_TOL, and
+    with ``div_tol`` every |div u_h| stays under it.  K1, KM and KA must
+    have launched."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from alfi_torch import kernels
+    from alfi_torch.examples import mms
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mms.main(argv)
+    total = time.perf_counter() - t0
+    launches = _launches()
+    dofs = [int(line.split(":")[1]) for line in buf.getvalue().splitlines()
+            if line.startswith("Number of degrees of freedom")]
+    # the solves in the logs' order: per nref, the Re in mms.RES order
+    nrefs = sorted({nref for nref, _ in out["counts"]})
+    keys = [(nref, re) for nref in nrefs for re in mms.RES]
+    mine = [out["counts"][k] for k in keys]
+    want = _log_solves(counts_log)
+    print("%s: %s dofs, %d solves in %.3f s; Krylov per solve %s (JAX %s); "
+          "kernel launches %s" % (label, dofs, len(mine), total,
+                                  [k for k, _ in mine], [k for k, _ in want],
+                                  launches), flush=True)
+    if len(want) != len(mine):
+        raise AssertionError("%s: %d solves, the log %d"
+                             % (label, len(mine), len(want)))
+    for (nref, re), (k, n), (kj, nj) in zip(keys, mine, want):
+        ok = ((k, n) == (kj, nj) if re in MMS_EXACT
+              else n == nj and k <= kj + nj)
+        if not ok:
+            raise AssertionError("%s nref=%d Re=%s: Krylov/Newton %d/%d "
+                                 "against the JAX package's %d/%d"
+                                 % (label, nref, re, k, n, kj, nj))
+    orders = []
+    for re in mms.RES:
+        r = out["results"][re]
+        orders += [mms.convergence_orders(r["velocity"]),
+                   mms.convergence_orders(r["pressure"])]
+    logged = _log_orders(orders_log)
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(orders, logged))
+    print("%s convergence orders (u, p) per Re: %s; max difference from the "
+          "log's %.2e" % (label, "; ".join(
+              "%s: %s, %s" % (re, np.round(orders[2 * i], 4),
+                              np.round(orders[2 * i + 1], 4))
+              for i, re in enumerate(mms.RES)), worst), flush=True)
+    if not (len(orders) == len(logged) and worst <= MMS_ORDER_TOL):
+        raise AssertionError("%s: convergence orders differ from the log's "
+                             "by %.3e" % (label, worst))
+    if div_tol is not None:
+        divs = [d for re in mms.RES for d in out["results"][re]["divergence"]]
+        print("%s max |div u_h| %.3e" % (label, max(divs)), flush=True)
+        if not max(divs) < div_tol:
+            raise AssertionError("%s: |div u_h| %.3e >= %.0e"
+                                 % (label, max(divs), div_tol))
+    if min(launches["K1"], launches["KM"], launches["KA"]) <= 0:
+        raise AssertionError("%s: a kernel of the path was not launched: %s"
+                             % (label, launches))
+
+
+def _direct_phase(make, almg_u):
+    """Phase 13: lu and allu at the bench config over BENCH_RES; lu takes
+    LU_NEWTON, allu converges, allu's velocity is within DIRECT_TOL of
+    lu's and of almg's (``almg_u``, phase 5's per Re); one assembly,
+    factorisation and solve of each timed apart; peak memory per mode."""
+    import gc
+
+    import torch
+
+    from alfi_torch.solvers import linear
+    from alfi_torch.solvers.batched_lu import coarse_factor, coarse_solve
+
+    states = {}
+    for mode in ("lu", "allu"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        solver = make(16, 2, solver_type=mode)
+        keep = []
+        rows, total = _solve_sweep(solver, BENCH_RES, keep=keep)
+        peak = torch.cuda.max_memory_allocated()
+        states[mode] = keep
+        print("%s at the bench config: %d dofs, Re 1->10->100 in %.3f s, "
+              "Krylov/Newton %s; peak device memory %.3f GB (%.3f GB "
+              "allocated at its start)"
+              % (mode, solver.Z.dim, total, [(r[1], r[2]) for r in rows],
+                 peak / 1e9, resident / 1e9), flush=True)
+        if mode == "lu" and [r[2] for r in rows] != LU_NEWTON:
+            raise AssertionError("lu Newton counts %s != %s"
+                                 % ([r[2] for r in rows], LU_NEWTON))
+        # one assembly, factorisation and solve at the last state, apart
+        z, params = solver.z, solver.params()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "lu":
+            A = linear.assemble_dense_mixed(solver.form, z, params,
+                                            solver.bcset)
+        else:
+            A = linear.assemble_dense_velocity(solver.form, z[0], params,
+                                               solver.bcset.mask[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fac = coarse_factor(A, overwrite=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x = coarse_solve(fac, torch.ones(A.shape[0], dtype=A.dtype,
+                                         device=A.device))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print("%s: N = %d (%.2f GB in f64): assembly %.3f s, factorisation "
+              "%.3f s, one solve %.4f s (finite: %s)"
+              % (mode, A.shape[0], A.numel() * 8 / 1e9, t1 - t0, t2 - t1,
+                 t3 - t2, bool(torch.isfinite(x).all())), flush=True)
+        del solver, A, fac, x
+    for i, re in enumerate(BENCH_RES):
+        d_lu = float((states["allu"][i] - states["lu"][i]).abs().max())
+        d_mg = float((states["allu"][i] - almg_u[i]).abs().max())
+        print("Re=%s: allu velocity against lu's %.3e, against almg's %.3e"
+              % (re, d_lu, d_mg), flush=True)
+        if not (d_lu < DIRECT_TOL and d_mg < DIRECT_TOL):
+            raise AssertionError("Re=%s: allu's velocity differs from lu's "
+                                 "by %.3e, from almg's by %.3e"
+                                 % (re, d_lu, d_mg))
 
 
 def main(kernels_only=False):
@@ -942,8 +1188,8 @@ def main(kernels_only=False):
     def make(baseN, nref, **kw):
         return ConstantPressureSolver(
             TwoDimLidDrivenCavityProblem(baseN), nref=nref, k=2,
-            solver_type="almg", hierarchy="uniform", gamma=1e4,
-            verbose=False, **kw)
+            **dict(dict(solver_type="almg", hierarchy="uniform", gamma=1e4,
+                        verbose=False), **kw))
 
     def timed(label, build):
         t0 = time.perf_counter()
@@ -983,6 +1229,13 @@ def main(kernels_only=False):
     sv3d = timed("SV 3D", lambda: get_solver(
         sv3d_args, ThreeDimLidDrivenCavityProblem(sv3d_args.baseN),
         device=dev))
+    # phase 16's multiplicative sweeps, whose colour tables phase 3c reads
+    mult = timed("multiplicative", lambda: make(
+        16, 2, patch_composition="multiplicative"))
+    mult3d = timed("multiplicative 3D", lambda: ConstantPressureSolver(
+        ThreeDimLidDrivenCavityProblem(2), nref=1, k=2, solver_type="almg",
+        hierarchy="uniform", gamma=1e4, verbose=False,
+        patch_composition="multiplicative"))
 
     def tables(vmg, levels, tag=""):
         """(name, table, mask for the masked variant) of a hierarchy's K1
@@ -1024,6 +1277,20 @@ def main(kernels_only=False):
     for name, vmg, l in levels:
         table += _check_merged(name, vmg, l, rng, flush_buf.zero_)
         torch.cuda.empty_cache()
+    # 3c. the per-colour K1 tables of the multiplicative sweeps, bare as
+    # the sweep calls them
+    for tag, vmg in (("", mult.vmg), ("3D ", mult3d.vmg)):
+        for l, (_, sweep) in enumerate(vmg.patch_solvers, 1):
+            print("multiplicative %sL%d: %d patches in %d colours (%s), %d "
+                  "K1 launches per symmetrised sweep"
+                  % (tag, l, sweep.patchset.npatches, sweep.ncolors,
+                     ", ".join(str(sweep.bounds[c + 1] - sweep.bounds[c])
+                               for c in range(sweep.ncolors)),
+                     len(sweep.seq)), flush=True)
+            for c, op in enumerate(sweep.tables):
+                table += _check_kernel("K1 colour %sL%d c%d" % (tag, l, c),
+                                       op, rng, flush_buf.zero_,
+                                       bare_only=True)
     # the list holds every hierarchy: drop it, so that the solver a later
     # phase deletes is freed and each sweep's peak is its own
     del flush_buf, levels, vmg
@@ -1062,7 +1329,8 @@ def main(kernels_only=False):
     bench.z = bench.bcset.apply(bench.Z.zero(dev))
     bench.z_last = bench.z
     kernels.reset_launch_counts()
-    rows, t_bench = _solve_sweep(bench, BENCH_RES)
+    bench_u = []
+    rows, t_bench = _solve_sweep(bench, BENCH_RES, keep=bench_u)
     launches = _launches()
     krylov = sum(r[1] for r in rows)
     newton = sum(r[2] for r in rows)
@@ -1172,6 +1440,53 @@ def main(kernels_only=False):
         "SV 3D", sv3d, sv3d_args, SV3D_JAX, tuple(SV3D_JAX), SV3D_DOFS,
         state_check=divergence_free(sv3d, False))
     launched.update((k, v) for k, v in per_table.items() if v)
+    del sv3d
+    torch.cuda.empty_cache()
+
+    # 13. the direct modes at the bench config, against lu and phase 5
+    _direct_phase(make, bench_u)
+    torch.cuda.empty_cache()
+
+    # 14. the MMS convergence studies through the port's harness
+    for label, argv, counts_log, orders_log, div_tol in MMS_RUNS:
+        _mms_phase(label, argv, os.path.join(here, counts_log),
+                   os.path.join(here, orders_log), div_tol)
+        torch.cuda.empty_cache()
+
+    # 15. the DFG cylinder through the driver
+    from alfi_torch.problems import DfgBenchmarkProblem
+
+    dfg_args = parser.parse_args(DFG_ARGV)
+    dfg = timed("DFG", lambda: get_solver(
+        dfg_args, DfgBenchmarkProblem(n=DFG_N), device=dev))
+    per_table = _driver_sweep("DFG", dfg, dfg_args, DFG_JAX, tuple(DFG_JAX),
+                              DFG_DOFS)
+    launched.update((k, v) for k, v in per_table.items() if v)
+    del dfg
+    torch.cuda.empty_cache()
+
+    # 16. the multiplicative sweeps: the colour tables on the main path
+    for label, solver, expected in (("multiplicative", mult, MULT_JAX),
+                                    ("multiplicative 3D", mult3d,
+                                     MULT3D_JAX)):
+        kernels.reset_launch_counts()
+        rows, total = _solve_sweep(solver, BENCH_RES)
+        launches = _launches()
+        counts = [(r[1], r[2]) for r in rows]
+        krylov = sum(k for k, _ in counts)
+        print("%s: %d dofs, Re 1->10->100 in %.3f s, counts %s (JAX CPU "
+              "%s); kernel launches %s: K1 %.1f and KM %.1f per Krylov "
+              "iteration" % (label, solver.Z.dim, total, counts, expected,
+                             launches, launches["K1"] / krylov,
+                             launches["KM"] / krylov), flush=True)
+        if counts != expected:
+            raise AssertionError("%s counts %s != the JAX package's %s"
+                                 % (label, counts, expected))
+        if launches["K1"] <= 0:
+            raise AssertionError("%s: no colour table launched" % label)
+        _check_levels(label, solver, launches)
+        launched.update((k, v) for k, v in _table_launches().items() if v)
+    _profile_linear_step(mult)
 
     sources = {"K1": os.path.relpath(kernels.SOURCE, here),
                "KM": os.path.relpath(kernels.LEVEL_SOURCE, here)}

@@ -215,12 +215,9 @@ def test_performance_info_lists_the_solve_events(sweeps, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--solver-type", "lu"],
-    ["--solver-type", "allu"],
     ["--solver-type", "alamg"],
     ["--solver-type", "simple"],
     ["--solver-type", "lsc"],
-    ["--patch-composition", "multiplicative"],
     ["--nref-vis", "1"],
     ["--ndevices", "2"],
     ["--rebalance"],
@@ -238,10 +235,15 @@ def test_unported_choices_raise(extra):
     ["--patch", "macro", "--mh", "bary"],
     ["--stabilisation-type", "burman"],
     ["--mkl"],
+    ["--solver-type", "lu"],
+    ["--solver-type", "allu"],
+    ["--patch-composition", "multiplicative"],
 ], ids=lambda e: " ".join(e))
 def test_ported_choices_build(extra):
     """Each choice builds its solver on the CPU at baseN=2, with the JAX
-    package's discretisation, hierarchy, patches and stabilisation."""
+    package's discretisation, hierarchy, patches, composition, pressure
+    null space (pinned by lu) and stabilisation; the direct modes build
+    no multigrid."""
     args = _args(tdriver, extra)
     args.baseN = 2
     solver = tdriver.get_solver(args, TorchLDC(2), device="cpu")
@@ -249,10 +251,74 @@ def test_ported_choices_build(extra):
     assert type(solver).__name__ == type(jsolver).__name__
     assert solver.Z.dim == jsolver.Z.dim
     assert solver.mh.kind == jsolver.mh.kind == args.mh
+    assert solver.nsp == jsolver.nsp
+    np.testing.assert_array_equal(solver.bcset.mask[1].numpy(),
+                                  np.asarray(jsolver.bcset.mask[1]))
+    assert hasattr(solver, "vmg") == hasattr(jsolver, "vmg") == (
+        args.solver_type == "almg")
+    if args.solver_type != "almg":
+        return
     assert ([ps.m for ps in solver.vmg.patchsets]
             == [ps.m for ps in jsolver.vmg.patchsets])
+    assert solver.vmg.patch_composition == args.patch_composition
     assert (solver.vmg.stab_facet is None) == (
         args.stabilisation_type != "burman")
+
+
+def _cross_problems(case):
+    """(argv, port problem, JAX problem) of a checkpoint-crossing case."""
+    from alfi_torch import problems as tproblems
+    from alfi_tpu import problems as jproblems
+
+    base = ["--discretisation", "pkp0", "--mh", "uniform", "--nref", "1",
+            "--solver-type", "lu", "--checkpoint"]
+    if case == "lu":
+        return base + ["--baseN", "2"], TorchLDC(2), JaxLDC(2)
+    if case == "dfg":
+        return (base, tproblems.DfgBenchmarkProblem(n=8),
+                jproblems.DfgBenchmarkProblem(n=8))
+    return (base, tproblems.TwoDimLidDrivenCavityMMSProblem(2),
+            jproblems.TwoDimLidDrivenCavityMMSProblem(2))
+
+
+@pytest.mark.parametrize("case", ["lu", "dfg", "mms"])
+def test_checkpoints_cross_both_ways(case, tmp_path):
+    """The states of an lu solve (pressure pinned), a dfg solve (no
+    pressure null space) and an MMS solve (forcing) checkpointed by one
+    package load in the other, which solves nothing and holds the same
+    state and counts."""
+    argv, tproblem, jproblem = _cross_problems(case)
+    res = [1]
+
+    def run(mod, problem, path, forbid, **kw):
+        args = mod.get_default_parser().parse_args(argv)
+        solver = mod.get_solver(args, problem, **kw)
+        solver.verbose = False
+        if forbid:
+            def no_solve(re):
+                raise AssertionError("solved Re=%s instead of loading it"
+                                     % re)
+            solver.solve = no_solve
+        out = _in_dir(path, lambda: mod.run_solver(solver, res, args))
+        return solver, out
+
+    for first, second in ((0, 1), (1, 0)):
+        path = tmp_path / str(first)
+        path.mkdir()
+        runs = [(tdriver, tproblem, dict(device="cpu")),
+                (jdriver, jproblem, {})]
+        mod, problem, kw = runs[first]
+        s1, r1 = run(mod, problem, path, False, **kw)
+        mod, problem, kw = runs[second]
+        s2, r2 = run(mod, problem, path, True, **kw)
+        assert r2[1]["checkpointed"]
+        assert _counts_of(r1) == _counts_of(r2)
+        for a, b in zip(s1.z, s2.z):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _counts_of(results):
+    return [tuple(int(r[k]) for k in COUNTS) for r in results.values()]
 
 
 def test_macro_patches_need_bary():
@@ -262,7 +328,6 @@ def test_macro_patches_need_bary():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"patch_composition": "multiplicative"}, "10d"),
     ({"nref_vis": 1}, "10h"),
     ({"rebalance_vertices": True}, "12"),
 ], ids=lambda e: str(e))
@@ -560,12 +625,26 @@ def test_solve_records_of_a_log_without_its_table(tmp_path):
     assert solve_records(str(log)) == {1.0: (5, 2), 10.0: (4, 2)}
 
 
-def test_iters_harness_rejects_unported_problems():
+def test_iters_harness_runs_dfg(tmp_path, monkeypatch, capsys):
+    """--problem dfg at --n 8 (the DFG channel, no pressure null space):
+    Re 1 and 10 converge, and the checkpoints are keyed by the dof
+    count."""
+    from alfi_torch.examples.compare_iters import solve_records
     from alfi_torch.examples.iters import main
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        main(["--problem", "dfg", "--discretisation", "pkp0",
-              "--nref-start", "1", "--nref-end", "1", "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)
+    main(["--problem", "dfg", "--discretisation", "pkp0", "--mh",
+          "uniform", "--stabilisation-type", "supg", "--restriction",
+          "--n", "8", "--nref-start", "1", "--nref-end", "1", "--re-max",
+          "10", "--checkpoint", "--device", "cpu"])
+    out = capsys.readouterr().out
+    log = tmp_path / "run.log"
+    log.write_text(out)
+    records = solve_records(str(log))
+    assert sorted(records) == [1.0, 10.0]
+    assert "DIVERGED" not in out
+    (ndofs,) = os.listdir(tmp_path / "checkpoint")
+    assert "Number of degrees of freedom: %s" % ndofs in out
 
 
 def test_iters_harness_runs_the_3d_cavity(tmp_path, monkeypatch, capsys):
