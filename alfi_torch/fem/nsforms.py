@@ -131,13 +131,13 @@ class NSForm:
 
     def forcing(self, params):
         """(f_v (nc, nq, d), f_q (nc, nq)) at the quadrature points, or
-        None without ``rhs``.  It depends on the params' scalars only
-        (nu, advect), so it is evaluated once per set of them and kept:
-        every Jacobian action of a Newton step reads the same one."""
+        None without ``rhs``.  It depends on nu and advect only, the two
+        params the problems' ``rhs`` reads, so it is evaluated once per
+        pair of them and kept: every Jacobian action of a Newton step
+        reads the same one."""
         if self.rhs is None:
             return None
-        key = tuple(sorted((k, float(v)) for k, v in params.items()
-                           if isinstance(v, (int, float))))
+        key = (float(params["nu"]), float(params.get("advect", 1.0)))
         if self._forcing_cache[0] != key:
             nc, nq, d = self.xq.shape
             f_v, f_q = self.rhs(self.xq.reshape(-1, d), params)

@@ -43,8 +43,8 @@ from .solvers.linear import (
     assemble_dense_mixed,
     assemble_dense_velocity,
     flatten_mixed,
+    lu_solve_closure,
     make_jacobian_matvec,
-    refined_lu_solve_closure,
     unflatten_mixed,
 )
 from .solvers.newton import newton
@@ -199,7 +199,6 @@ class NavierStokesSolver:
 
     def _build_step_functions(self):
         form, bcset, Z = self.form, self.bcset, self.Z
-        tol = self.tolerances
         project = pressure_nullspace_projector(Z) if self.nsp else None
         # the transfer operators of almg depend on (nu, gamma) only and
         # are built once per Re; the direct modes have none
@@ -208,52 +207,34 @@ class NavierStokesSolver:
         if self.solver_type == "lu":
             def lin(z, F, params, tstate):
                 A = assemble_dense_mixed(form, z, params, bcset)
-                solve = refined_lu_solve_closure(
-                    A, rtol=min(tol["ksp_rtol"], 1e-12))
-                x = solve(-flatten_mixed(F))
+                x = lu_solve_closure(A)(-flatten_mixed(F))
                 return bcset.zero(unflatten_mixed(x, Z)), 1
         elif self.solver_type == "allu":
             mask_u = bcset.mask[0]
             d = self.tdim
 
-            def lin(z, F, params, tstate):
-                Av = assemble_dense_velocity(form, z[0], params, mask_u)
-                flat_solve = refined_lu_solve_closure(Av, rtol=1e-10)
+            def make_solve_A(z, params, tstate):
+                flat_solve = lu_solve_closure(
+                    assemble_dense_velocity(form, z[0], params, mask_u))
+                return lambda rv: flat_solve(rv.reshape(-1)).reshape(-1, d)
 
-                def solve_A(rv):
-                    return flat_solve(rv.reshape(-1)).reshape(-1, d)
-
-                pc = SchurPC(form, mask_u, solve_A).make_apply(params)
-                J = make_jacobian_matvec(form.residual, bcset, z, params)
-                dz, info = fgmres(
-                    J, tscale(-1.0, F), pc=pc, rtol=tol["ksp_rtol"],
-                    atol=tol["ksp_atol"], maxit=500, restart=30,
-                    project=project)
-                return bcset.zero(dz), info["iters"]
+            lin = self._schur_fgmres_step(make_solve_A, project)
         else:
             lin = self._build_almg_step(project)
         self._linear_step = lin
 
-    def _build_almg_step(self, project):
-        from .mg.velocity import VelocityMG
-
-        self.vmg = VelocityMG(self)
+    def _schur_fgmres_step(self, make_solve_A, project):
+        """The outer Krylov step of allu and almg: FGMRES (maxit 500,
+        restart 30) on the matrix-free Jacobian under the Schur-complement
+        preconditioner, whose velocity solve ``make_solve_A(z, params,
+        tstate)`` builds at each Newton step."""
         form, bcset = self.form, self.bcset
         tol = self.tolerances
         mask_u = bcset.mask[0]
-        vmg = self.vmg
-
-        # one-time static patch operators (smoother levels + transfers)
-        self._almg_static = vmg.static_state()
-        static = self._almg_static
-        self._transfer_setup = (
-            lambda params: vmg.transfer_setup(params, static["schoeberl"]))
 
         def lin(z, F, params, tstate):
-            state = vmg.setup(z[0], params, schoeberl_state=tstate,
-                              static=static, p_fine=z[1])
-            pc = SchurPC(form, mask_u, vmg.make_solve_A(state)).make_apply(
-                params)
+            pc = SchurPC(form, mask_u, make_solve_A(z, params, tstate)
+                         ).make_apply(params)
             J = make_jacobian_matvec(form.residual, bcset, z, params)
             dz, info = fgmres(
                 J, tscale(-1.0, F), pc=pc, rtol=tol["ksp_rtol"],
@@ -262,6 +243,25 @@ class NavierStokesSolver:
             return bcset.zero(dz), info["iters"]
 
         return lin
+
+    def _build_almg_step(self, project):
+        from .mg.velocity import VelocityMG
+
+        self.vmg = VelocityMG(self)
+        vmg = self.vmg
+
+        # one-time static patch operators (smoother levels + transfers)
+        self._almg_static = vmg.static_state()
+        static = self._almg_static
+        self._transfer_setup = (
+            lambda params: vmg.transfer_setup(params, static["schoeberl"]))
+
+        def make_solve_A(z, params, tstate):
+            return vmg.make_solve_A(vmg.setup(
+                z[0], params, schoeberl_state=tstate, static=static,
+                p_fine=z[1]))
+
+        return self._schur_fgmres_step(make_solve_A, project)
 
     # ------------------------------------------------------------------
     def message(self, msg):

@@ -28,21 +28,17 @@ def patch_inverses(A):
     return torch.linalg.inv(A)
 
 
-def coarse_factor(A, overwrite=False):
-    """Dense LU factorisation of one (N, N) matrix: (LU, pivots,
-    adjoint).  With ``overwrite`` the factors take A's own buffer: A^T,
-    a column-major view of the row-major A, is factored in place (no
-    copy; the direct modes' matrices reach 13.8 GB at the bench config),
-    and the solve then takes the adjoint."""
-    if not overwrite:
-        return (*torch.linalg.lu_factor(A), False)
+def coarse_factor(A):
+    """Dense LU factorisation of one (N, N) matrix, in A's own buffer: A
+    is overwritten.  A^T, a column-major view of the row-major A, is
+    factored in place with no copy (the direct modes' matrices reach
+    13.8 GB at the bench config), so the solve takes the adjoint."""
     At = A.mT
     piv = torch.empty(A.shape[0], dtype=torch.int32, device=A.device)
-    LU, piv = torch.linalg.lu_factor(At, out=(At, piv))
-    return LU, piv, True
+    return torch.linalg.lu_factor(At, out=(At, piv))
 
 
 def coarse_solve(fac, b):
-    """Solve with a :func:`coarse_factor` result; b is (N,)."""
-    LU, piv, adjoint = fac
-    return torch.linalg.lu_solve(LU, piv, b[:, None], adjoint=adjoint)[:, 0]
+    """Solve A x = b with a :func:`coarse_factor` result; b is (N,)."""
+    LU, piv = fac
+    return torch.linalg.lu_solve(LU, piv, b[:, None], adjoint=True)[:, 0]

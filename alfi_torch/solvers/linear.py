@@ -123,18 +123,9 @@ def assemble_dense_from_tensors(form, T, mask_u, facet_tensors=None,
 
 
 def lu_solve_closure(A):
-    """Factor A once (LU with partial pivoting, f64, in A's own buffer:
-    A is overwritten) and return x -> A^{-1} x on flat vectors."""
-    fac = coarse_factor(A, overwrite=True)
-    return lambda b: coarse_solve(fac, b)
-
-
-def refined_lu_solve_closure(A, rtol=1e-12):
     """The full-accuracy direct solve (the MUMPS analogue,
-    alfi/solver.py:396-403).  The factorisation is f64, so this is a
-    plain factor and solve (the JAX package refines iteratively only
-    when its factorisation is forced to f32, a TPU option the port does
-    not have); ``rtol`` is accepted for the JAX signature.  A is
-    overwritten."""
-    del rtol
-    return lu_solve_closure(A)
+    alfi/solver.py:396-403): factor A once (LU with partial pivoting,
+    f64, in A's own buffer: A is overwritten) and return x -> A^{-1} x
+    on flat vectors."""
+    fac = coarse_factor(A)
+    return lambda b: coarse_solve(fac, b)

@@ -1117,7 +1117,7 @@ def _direct_phase(make, almg_u):
                                                solver.bcset.mask[0])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        fac = coarse_factor(A, overwrite=True)
+        fac = coarse_factor(A)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         x = coarse_solve(fac, torch.ones(A.shape[0], dtype=A.dtype,
