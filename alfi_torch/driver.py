@@ -226,10 +226,15 @@ def run_solver(solver, res, args):
                 save_checkpoint(path, z, info_dict)
         if args.paraview:
             os.makedirs(outdir, exist_ok=True)
-            from .utils.vtk import write_vtu
+            from .utils.vtk import write_velocity_vtu, write_vtu
 
             write_vtu(outdir + "velocity-Re-%s.vtu" % re, solver.mesh,
                       solver.Z, [x.cpu().numpy() for x in solver.z])
+            if solver.nref_vis:
+                uvis, vmesh, _ = solver.visprolong(solver.z[0])
+                write_velocity_vtu(
+                    outdir + "velocity-refined-Re-%s.vtu" % re, vmesh,
+                    uvis.cpu().numpy())
     for re in results:
         print(results[re])
     if args.time:

@@ -243,12 +243,17 @@ class NSForm:
         -int phi_m d_i phi_l, Jpu its transpose, Jpp zero; the forcing
         does not depend on z, and no stabilisation term enters."""
         Juu = self.velocity_element_tensors(params, z[0])
-        nc, nq, nl, d = self.gtest.shape
-        Jup = -torch.einsum("cq,qm,cqli->clim", self.wdet, self.tab_q.phi,
-                            self.gtest).reshape(nc, nl * d, -1)
+        Jup = self.gradient_element_tensors()
         Jpu = Jup.transpose(1, 2).contiguous()
         nlq = Jup.shape[2]
-        return Juu, Jup, Jpu, Juu.new_zeros((nc, nlq, nlq))
+        return Juu, Jup, Jpu, Juu.new_zeros((Jup.shape[0], nlq, nlq))
+
+    def gradient_element_tensors(self):
+        """(nc, nlv*d, nlq) per-cell blocks of B^T, the -(p, div v)
+        coupling: [(l,i), m] = -int phi_m d_i phi_l."""
+        nc, nq, nl, d = self.gtest.shape
+        return -torch.einsum("cq,qm,cqli->clim", self.wdet, self.tab_q.phi,
+                             self.gtest).reshape(nc, nl * d, -1)
 
     # ------------------------------------------------------------------
     # gamma-split structure: per-cell factors of the grad-div term

@@ -24,7 +24,10 @@ The level operator (the cell tensors plus, with Burman's stabilisation,
 the interior-facet Jacobians) is applied merged: :class:`MergedLevelOperator`
 binds a level's host pattern (``mg/level_operator.py``) to
 ``csrc/level_operator.cu``, whose KA sums the blocks into one operator of
-distinct couplings once per Newton step and whose KM applies it.
+distinct couplings once per Newton step and whose KM applies it.  KA sums
+by a host assembly map alone (:class:`MapAssembly`, a dest-major CSR of
+source positions), so the AMG baseline's level-1 Galerkin product
+(``mg/amg.py``) runs it too, over a map of its own.
 
 Each source is built with nvcc for ``sm_90a`` at first use, into the
 git-ignored ``_build/`` directory under a name keyed by the source's hash,
@@ -360,6 +363,95 @@ class GatherGemvScatter:
         return torch.where(self.out_keep, acc, passthrough)
 
 
+class MapAssembly:
+    """out[e] = sum of src[amap_src[s]] over s in [amap_ptr[e],
+    amap_ptr[e+1]), in that order, with src = [cells flat ‖ facets flat]
+    (a position p >= ``ncell`` is entry p - ncell of the facets): kernel
+    KA of ``csrc/level_operator.cu``, one thread per entry, no atomics, so
+    two launches give the same bits.  An entry with no source is 0.
+
+    ``amap_ptr`` (nvals + 1,), ``amap_src`` host int arrays (int32 on the
+    card: raises if a position reaches 2**31).  Each launch adds one to
+    ``counts[key]``: by default ``MapAssembly.launches["KG"]``, the maps
+    of no merged level operator (the AMG Galerkin product's); a
+    MergedLevelOperator counts its own as "KA".  Tensors on the CPU run the
+    plain version; on a CUDA device the kernel launches or raises."""
+
+    #: launches since the last reset_launch_counts() of the maps that
+    #: count here
+    launches = {"KG": 0}
+    _tables_alive = weakref.WeakSet()
+
+    def __init__(self, amap_ptr, amap_src, ncell, *, device, counts=None,
+                 key="KG"):
+        self.counts = MapAssembly.launches if counts is None else counts
+        self.key = key
+        amap_ptr = np.asarray(amap_ptr, dtype=np.int64)
+        amap_src = np.asarray(amap_src, dtype=np.int64)
+        if (amap_ptr[-1] >= 2 ** 31 or ncell >= 2 ** 31
+                or (amap_src.size and amap_src.max() >= 2 ** 31)):
+            raise ValueError("assembly map too large for int32 indices")
+        self.ncell = int(ncell)
+        self.nvals = len(amap_ptr) - 1
+        self.nsrc = int(amap_ptr[-1])
+        #: whether the map reads facet sources (positions past ncell)
+        self.reads_facets = bool(amap_src.size
+                                 and amap_src.max() >= self.ncell)
+
+        def dev(a):
+            return torch.as_tensor(a.astype(np.int32), device=device)
+
+        self.amap_ptr, self.amap_src = dev(amap_ptr), dev(amap_src)
+        self.device = self.amap_ptr.device
+        #: this map's launches since the last reset_launch_counts()
+        self.launched = 0
+        MapAssembly._tables_alive.add(self)
+        self._lib = None
+        if self.device.type == "cuda":
+            self._lib = load_library(LEVEL_SOURCE)
+
+    def __call__(self, cells, facets=None):
+        """(nvals,) sums over the flat ``cells`` (ncell values) and, when
+        the map reaches past them, ``facets`` (contiguous f64 on the
+        map's device)."""
+        for t, name in ((cells, "cells"), (facets, "facets")):
+            if t is not None:
+                _check_tensor(t, name, t.shape, self.device)
+        if cells.numel() != self.ncell:
+            raise ValueError("cells has %d values, the map %d"
+                             % (cells.numel(), self.ncell))
+        if self.reads_facets and facets is None:
+            raise ValueError("the map reads facet sources: facets needed")
+        if self._lib is None:
+            return self.plain(cells, facets)
+        vals = torch.empty((self.nvals,), dtype=torch.float64,
+                           device=self.device)
+        idx = self.device.index
+        err = self._lib.alfi_level_assemble(
+            cells.data_ptr(), None if facets is None else facets.data_ptr(),
+            self.ncell, self.amap_ptr.data_ptr(), self.amap_src.data_ptr(),
+            vals.data_ptr(), self.nvals, idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+        if err != 0:
+            raise RuntimeError("level_operator KA: CUDA error %d after "
+                               "launch" % err)
+        self.counts[self.key] += 1
+        self.launched += 1
+        return vals
+
+    def plain(self, cells, facets=None):
+        """KA in plain PyTorch: the map's sources gathered and added by
+        index_add_ in the map's order (deterministic on the CPU only)."""
+        src = cells.reshape(-1)
+        if facets is not None:
+            src = torch.cat([src, facets.reshape(-1)])
+        dest = torch.repeat_interleave(
+            torch.arange(self.nvals, device=self.device),
+            torch.diff(self.amap_ptr.long()))
+        return src.new_zeros(self.nvals).index_add_(
+            0, dest, src[self.amap_src.long()])
+
+
 def merged_lanes_log2(row_lengths, d):
     """log2 of KM's lanes per node row for a table of d x d blocks whose
     rows hold these numbers of blocks: the power of two, 1 to a warp,
@@ -407,17 +499,24 @@ class MergedLevelOperator:
 
         self.rowptr, self.bcol = dev(pattern.rowptr), dev(pattern.bcol)
         self.device = self.rowptr.device
-        self.amap_ptr, self.amap_src = (dev(pattern.amap_ptr),
-                                        dev(pattern.amap_src))
+        #: KA, the assembly by the pattern's map
+        self.assembly = MapAssembly(
+            pattern.amap_ptr, pattern.amap_src, pattern.ncell, device=device,
+            counts=MergedLevelOperator.launches, key="KA")
         #: the mask as one 0/1 byte (bool) per flat dof
         self.keep = dev(pattern.keep)
+        brow = np.repeat(np.arange(self.nodes), pattern.row_lengths)
         #: per block, its row node (the plain version's scatter)
-        self.brow = dev(np.repeat(np.arange(self.nodes), pattern.row_lengths))
+        self.brow = dev(brow)
+        # per node, its diagonal block (0 for a node with none: all its
+        # components are masked)
+        diag = np.zeros(self.nodes, dtype=np.int64)
+        on_diag = pattern.bcol == brow
+        diag[brow[on_diag]] = np.flatnonzero(on_diag)
+        self.diag_block = dev(diag)
         #: log2 of KM's lanes per node row
         self.lanes_log2 = merged_lanes_log2(pattern.row_lengths, d)
-        #: this table's launches per kernel since the last
-        #: reset_launch_counts()
-        self.launched = {"KM": 0, "KA": 0}
+        self._km_launched = 0
         MergedLevelOperator._tables_alive.add(self)
         self._lib = None
         if self.device.type == "cuda":
@@ -426,12 +525,11 @@ class MergedLevelOperator:
     def _check(self, t, name, shape):
         _check_tensor(t, name, shape, self.device)
 
-    def _counted(self, kernel, err):
-        if err != 0:
-            raise RuntimeError("level_operator %s: CUDA error %d after "
-                               "launch" % (kernel, err))
-        MergedLevelOperator.launches[kernel] += 1
-        self.launched[kernel] += 1
+    @property
+    def launched(self):
+        """This table's launches per kernel since the last
+        reset_launch_counts()."""
+        return {"KM": self._km_launched, "KA": self.assembly.launched}
 
     def assemble(self, cells, facets=None):
         """(nnzb, d, d) merged values from the cell tensors (nc, nld, nld)
@@ -443,17 +541,7 @@ class MergedLevelOperator:
                              "pattern has facets")
         if facets is not None:
             self._check(facets, "facets", self.facet_shape)
-        if self._lib is None:
-            return self.plain_assemble(cells, facets)
-        vals = torch.empty(self.vshape, dtype=torch.float64,
-                           device=self.device)
-        idx = self.device.index
-        self._counted("KA", self._lib.alfi_level_assemble(
-            cells.data_ptr(), None if facets is None else facets.data_ptr(),
-            self.pattern.ncell, self.amap_ptr.data_ptr(),
-            self.amap_src.data_ptr(), vals.data_ptr(), vals.numel(), idx,
-            torch._C._cuda_getCurrentRawStream(idx)))
-        return vals
+        return self.assembly(cells, facets).reshape(self.vshape)
 
     def __call__(self, vals, x):
         """out (n,) = keep * A x + (1 - keep) * x, A the merged values."""
@@ -463,26 +551,29 @@ class MergedLevelOperator:
             return self.plain(vals, x)
         out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
         idx = self.device.index
-        self._counted("KM", self._lib.alfi_level_apply(
+        err = self._lib.alfi_level_apply(
             vals.data_ptr(), x.data_ptr(), self.rowptr.data_ptr(),
             self.bcol.data_ptr(), self.keep.data_ptr(), out.data_ptr(),
             self.nodes, self.d, self.lanes_log2, idx,
-            torch._C._cuda_getCurrentRawStream(idx)))
+            torch._C._cuda_getCurrentRawStream(idx))
+        if err != 0:
+            raise RuntimeError("level_operator KM: CUDA error %d after "
+                               "launch" % err)
+        MergedLevelOperator.launches["KM"] += 1
+        self._km_launched += 1
         return out
 
     def plain_assemble(self, cells, facets=None):
-        """KA in plain PyTorch: the map's sources gathered and added by
-        index_add_ in the map's order (deterministic on the CPU only)."""
-        src = cells.reshape(-1)
-        if facets is not None:
-            src = torch.cat([src, facets.reshape(-1)])
-        nvals = self.amap_ptr.numel() - 1
-        dest = torch.repeat_interleave(
-            torch.arange(nvals, device=self.device),
-            torch.diff(self.amap_ptr.long()))
-        vals = src.new_zeros(nvals).index_add_(0, dest,
-                                               src[self.amap_src.long()])
-        return vals.reshape(self.vshape)
+        """KA's plain version (:meth:`MapAssembly.plain`)."""
+        return self.assembly.plain(cells, facets).reshape(self.vshape)
+
+    def diagonal(self, vals):
+        """(n,) the operator's diagonal, read off the merged values: the
+        diagonal of each node row's diagonal block, 1 on masked dofs (the
+        Jacobi smoother's)."""
+        ar = torch.arange(self.d, device=self.device)
+        dv = vals[self.diag_block][:, ar, ar].reshape(-1)
+        return torch.where(self.keep, dv, torch.ones_like(dv))
 
     def plain(self, vals, x):
         """KM in plain PyTorch: x gathered by block column, an einsum and
@@ -507,4 +598,8 @@ def reset_launch_counts():
     for key in MergedLevelOperator.launches:
         MergedLevelOperator.launches[key] = 0
     for table in MergedLevelOperator._tables_alive:
-        table.launched = dict.fromkeys(table.launched, 0)
+        table._km_launched = 0
+    for key in MapAssembly.launches:
+        MapAssembly.launches[key] = 0
+    for table in MapAssembly._tables_alive:
+        table.launched = 0

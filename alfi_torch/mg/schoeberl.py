@@ -103,10 +103,18 @@ class SchoeberlTransfer:
         parts — see mg/patches.py patch_static_operators."""
         return patch_static_operators(self.patchset, self.fine_level.form)
 
-    def setup(self, params, static):
+    def setup(self, params, static=None):
         """Per-parameter state: patch inverses of the transfer form (nu
-        viscous + gamma graddiv, no advection) from ``static`` =
-        static_ops()."""
+        viscous + gamma graddiv, no advection), from ``static`` =
+        static_ops() or, without it, from the whole cell tensors of that
+        form (the grad-div harness's route, as in the JAX package)."""
+        if static is None:
+            lev = self.fine_level
+            zero_wind = torch.zeros((lev.V.ndof, self.mg.d),
+                                    dtype=real_dtype, device=self.mg.device)
+            tensors = lev.form.velocity_element_tensors(
+                dict(params, advect=0.0), zero_wind)
+            return {"lufac": self.factor(tensors), "gamma": params["gamma"]}
         A = _add_diag(params["nu"] * static["K"]
                       + params["gamma"] * static["G"], static["pad_diag"])
         return {"lufac": patch_inverses(A).contiguous(),

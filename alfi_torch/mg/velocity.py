@@ -18,9 +18,12 @@ that step reads with kernel KM; the patch smoother runs kernel K1
 
 Ported choices: star and macrostar patches, additive composition or
 multiplicative colour sweeps (one K1 table per colour, a KM residual
-update between colours), Schoeberl transfers, FMG cycle, dense coarse
-LU, SUPG/GLS terms in the level and patch operators, and Burman's facet
-terms there (SV).
+update between colours), Schoeberl or standard transfers, patch or
+Jacobi smoothers under FGMRES or Chebyshev, FMG, V- or W-cycles, dense
+coarse LU, SUPG/GLS terms in the level and patch operators, and Burman's
+facet terms there (SV).  The grad-div harness (``alfi_torch/graddiv.py``)
+takes the Chebyshev-driven W-cycle; the Navier-Stokes solver the
+defaults.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import real_dtype
 from ..fem import (
     BCSet,
     FunctionSpace,
@@ -38,7 +42,7 @@ from ..fem import (
 )
 from ..kernels import MergedLevelOperator
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
-from ..solvers.krylov import fgmres
+from ..solvers.krylov import chebyshev, fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
 from ..stabilisation import BurmanStabilisation, make_stabilisation
 from .patches import (
@@ -83,14 +87,37 @@ class MGLevel:
 class VelocityMG:
     """Geometric MG hierarchy for the velocity block of one solver
     (supplies hierarchy, element, problem BCs, graddiv mode, smoothing
-    count, patch kind, device)."""
+    count, patch kind, composition, restriction flag, stabilisation,
+    device).
 
-    def __init__(self, solver):
+    transfer_mode : 'schoeberl' (the robust prolongation, the reference's
+        default, alfi/solver.py:588-597) or 'standard' (prolong by the
+        point evaluation, restrict by its transpose);
+    smoother : 'patch' or 'jacobi' (the operator diagonal, the grad-div
+        study's weak baseline, examples/graddiv/graddiv.py:140-147);
+    smoother_driver : 'fgmres' (the NS solver) or 'chebyshev' (linear,
+        for the grad-div harness's CG);
+    cycle : 'full' (FMG, the NS solver), 'v' or 'w'.
+    """
+
+    def __init__(self, solver, transfer_mode="schoeberl", smoother="patch",
+                 smoother_driver="fgmres", cycle="full"):
+        if transfer_mode not in ("schoeberl", "standard"):
+            raise ValueError("transfer_mode %r" % transfer_mode)
+        if smoother not in ("patch", "jacobi"):
+            raise ValueError("smoother %r" % smoother)
+        if smoother_driver not in ("fgmres", "chebyshev"):
+            raise ValueError("smoother_driver %r" % smoother_driver)
+        if cycle not in ("full", "v", "w"):
+            raise ValueError("cycle %r" % cycle)
         mh = solver.mh
         self.hierarchy = mh
         self.device = solver.device
         problem = solver.problem
         self.smoothing = solver.smoothing
+        self.smoother = smoother
+        self.smoother_driver = smoother_driver
+        self.cycle = cycle
         #: use the Schoeberl ADJOINT for restriction too (--restriction
         #: flag; default False = standard restriction, matching
         #: alfi/solver.py:592-593)
@@ -141,7 +168,9 @@ class VelocityMG:
         self.factor_parts = []
         patches = (macrostar_patches if solver.patch == "macro"
                    else star_patches)
-        for l in range(1, self.nlevels):
+        # the Jacobi smoother builds no patches (the JAX package builds
+        # them and never reads them)
+        for l in range(1, self.nlevels if smoother == "patch" else 1):
             lev = self.levels[l]
             ps = patches(lev.V, lev.mask_flat.cpu().numpy())
             if self.patch_composition == "multiplicative":
@@ -157,9 +186,11 @@ class VelocityMG:
                     ps, out_mask=lev.mask_flat, device=self.device))
                 self.factor_parts.append(make_patch_factor_parts(ps))
             self.patchsets.append(ps)
-        self.schoeberl = [
-            SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)
-        ]
+        self.schoeberl = None
+        if transfer_mode == "schoeberl":
+            self.schoeberl = [
+                SchoeberlTransfer(self, l) for l in range(self.nlevels - 1)
+            ]
 
         # stabilisation in the level operators: the reference assembles
         # its PCMG/PCPatch operators from the full stabilised Jacobian
@@ -198,7 +229,7 @@ class VelocityMG:
         # tensors, so the static K and G patch contractions are not kept.
         self.stab_facet = None
         self.facet_rows = [None] * self.nlevels
-        if st is not None and st.has_facet_tensors:
+        if st is not None and st.has_facet_tensors and smoother == "patch":
             self.stab_facet = [
                 (st.impl if l == self.nlevels - 1 else
                  BurmanStabilisation(self.levels[l].form,
@@ -247,12 +278,17 @@ class VelocityMG:
                                                               self.d)
 
     # ------------------------------------------------------------------
-    def transfer_setup(self, params, statics):
+    def transfer_setup(self, params, statics=None):
         """Schoeberl transfer factorisations — depend only on (nu, gamma),
         so the solver computes them ONCE per Reynolds solve (the
         reference's parameter-keyed rebuild cache,
         alfi/transfer.py:168-184).  ``statics``: static_state()'s
-        "schoeberl" list."""
+        "schoeberl" list, or None to factor from the whole cell tensors.
+        None with standard transfers."""
+        if self.schoeberl is None:
+            return None
+        if statics is None:
+            statics = [None] * len(self.schoeberl)
         return [t.setup(params, s) for t, s in zip(self.schoeberl, statics)]
 
     def static_state(self):
@@ -262,20 +298,23 @@ class VelocityMG:
             (patch_static_operators(self.patchsets[l - 1],
                                     self.levels[l].form)
              if self.factor_parts[l - 1] is not None else None)
-            for l in range(1, self.nlevels)
+            for l in range(1, len(self.patchsets) + 1)
         ]
-        schoeberl = [t.static_ops() for t in self.schoeberl]
+        schoeberl = (None if self.schoeberl is None
+                     else [t.static_ops() for t in self.schoeberl])
         return {"levels": levels, "schoeberl": schoeberl}
 
     def setup(self, u_fine, params, schoeberl_state, static, p_fine=None):
         """Build the per-Newton-step state: winds, tensors, patch
-        inverses, coarse factorisation (the split form: only the
-        advection part, and the stabilisation's where one is wired, is
-        wind-dependent; the geometry-only patch parts come from
-        ``static`` = static_state(), the transfer factorisations are
-        ``schoeberl_state`` = transfer_setup()).  With a stabilisation
-        the fine pressure ``p_fine`` is required: its terms need the
-        pressure on every level."""
+        inverses (or Jacobi diagonals), coarse factorisation (the split
+        form: only the advection part, and the stabilisation's where one
+        is wired, is wind-dependent; the geometry-only patch parts come
+        from ``static`` = static_state(), or with None the patch matrices
+        are summed from the whole cell tensors; the transfer
+        factorisations are ``schoeberl_state`` = transfer_setup()).  With
+        a stabilisation the fine pressure ``p_fine`` is required: its
+        terms need the pressure on every level.  With the Chebyshev
+        driver, each smoothed level's eigenvalue estimate too."""
         winds = [None] * self.nlevels
         winds[-1] = u_fine
         for l in range(self.nlevels - 2, -1, -1):
@@ -325,11 +364,11 @@ class VelocityMG:
                 ).contiguous()
                 for l in range(1, self.nlevels)
             ]
-        else:
+        elif self.smoother == "patch":
             patch_lufacs = [
                 self.factor_parts[l - 1](static["levels"][l - 1],
                                          N_els[l], params)
-                if self.factor_parts[l - 1] is not None
+                if self.factor_parts[l - 1] is not None and static is not None
                 else self.patch_solvers[l - 1][0](tensors[l])
                 for l in range(1, self.nlevels)
             ]
@@ -340,7 +379,12 @@ class VelocityMG:
         # level 0 is solved densely and never applied
         level_ops = [None] + [self.level_assemble(l, tensors[l], ftensors[l])
                               for l in range(1, self.nlevels)]
-        return {
+        if self.smoother == "jacobi":
+            # the operator diagonals, read off the merged values
+            patch_lufacs = [
+                self.level_ops[l].diagonal(level_ops[l]).reshape(-1, self.d)
+                for l in range(1, self.nlevels)]
+        state = {
             "tensors": tensors,
             "ftensors": ftensors,
             "level_ops": level_ops,
@@ -348,13 +392,21 @@ class VelocityMG:
             "coarse_fac": coarse_factor(A0),
             "schoeberl": schoeberl_state,
         }
+        if self.smoother_driver == "chebyshev":
+            state["lmax"] = [self._estimate_lmax(l, state)
+                             for l in range(1, self.nlevels)]
+        return state
 
     def _smoother_pc(self, l, state):
         """mask * M (mask * r) + (1 - mask) * r: M the additive patch
         inverse, in one call of kernel K1; or the multiplicative sweep,
         one K1 call per colour visit and a KM residual update between
-        visits (the sweep's x is zero on masked dofs)."""
+        visits (the sweep's x is zero on masked dofs); or, for the Jacobi
+        smoother, r / diag (diag 1 on masked dofs)."""
         inv = state["patch_lufacs"][l - 1]
+        if self.smoother == "jacobi":
+            return lambda r: r / inv
+
         _, papply = self.patch_solvers[l - 1]
         if self.patch_composition == "multiplicative":
             vals, op = state["level_ops"][l], self.level_ops[l]
@@ -373,6 +425,42 @@ class VelocityMG:
 
         return pc
 
+    def _estimate_lmax(self, l, state, k=10):
+        """The largest eigenvalue of the preconditioned level operator,
+        as PETSc's GMRES eigenvalue estimate gives it: k Arnoldi steps
+        (modified Gram-Schmidt) from the masked ones vector, then
+        sigma_max of the (k+1, k) Hessenberg by 20 power iterations on
+        H^T H (the JAX package's ``VelocityMG._estimate_lmax``).  A host
+        float: one synchronisation per level and set-up."""
+        lev = self.levels[l]
+        vals = state["level_ops"][l]
+        pc = self._smoother_pc(l, state)
+
+        def op(x):
+            return pc(self.level_apply(l, vals, x))
+
+        v = lev.mask_u * torch.ones((lev.V.ndof, self.d), dtype=real_dtype,
+                                    device=self.device)
+        v = v / torch.linalg.norm(v)
+        Vs = [v]
+        H = torch.zeros((k + 1, k), dtype=real_dtype, device=self.device)
+        for j in range(k):
+            w = op(Vs[j])
+            for i in range(j + 1):
+                hij = torch.sum(Vs[i] * w)
+                H[i, j] = hij
+                w = w - hij * Vs[i]
+            hn = torch.linalg.norm(w)
+            H[j + 1, j] = hn
+            Vs.append(w / (hn + 1e-300))
+        x = torch.ones((k,), dtype=real_dtype, device=self.device)
+        n = torch.ones((), dtype=real_dtype, device=self.device)
+        for _ in range(20):
+            y = H.T @ (H @ x)
+            n = torch.linalg.norm(y)
+            x = y / (n + 1e-300)
+        return float(torch.sqrt(n))
+
     # ------------------------------------------------------------------
     def _coarse_solve(self, state, r):
         lev0 = self.levels[0]
@@ -381,45 +469,54 @@ class VelocityMG:
         return x.reshape(-1, self.d) * mask + (1.0 - mask) * r
 
     def _smooth(self, l, state, b, x0):
-        """Fixed-iteration level smoother: FGMRES(smoothing) + patch PC
-        (ksp_convergence_test skip).  ``x0=None`` means a zero initial
-        guess (the defect is then ``b`` itself)."""
+        """Fixed-iteration level smoother: FGMRES(smoothing) + PC
+        (ksp_convergence_test skip), or Chebyshev(smoothing) + PC for the
+        grad-div harness.  ``x0=None`` means a zero initial guess (the
+        defect is then ``b`` itself)."""
         vals = state["level_ops"][l]
 
         def A(v):
             return self.level_apply(l, vals, v)
 
         m = self.smoothing
+        if self.smoother_driver == "chebyshev":
+            return chebyshev(A, b, self._smoother_pc(l, state), x0=x0,
+                             maxit=m, lmax=state["lmax"][l - 1])
         x, _ = fgmres(A, b, pc=self._smoother_pc(l, state), x0=x0,
                       rtol=0.0, atol=-1.0, maxit=m, restart=m)
         return x
 
     def _prolong(self, l, state, xc):
         """Correction prolongation coarse level l -> l+1."""
-        xf = self.schoeberl[l].prolong(state["schoeberl"][l], xc)
+        if self.schoeberl is None:
+            xf = self.prolongs[l].apply(xc)
+        else:
+            xf = self.schoeberl[l].prolong(state["schoeberl"][l], xc)
         return self.levels[l + 1].mask_u * xf
 
     def _restrict(self, l, state, rf):
         """Residual restriction level l+1 -> l: the Schoeberl adjoint only
         behind --restriction, else the standard adjoint (reference
         default)."""
-        if self.schoeberl_restriction:
+        if self.schoeberl is not None and self.schoeberl_restriction:
             rc = self.schoeberl[l].restrict(state["schoeberl"][l], rf)
         else:
             rc = self.prolongs[l].apply_transpose(rf)
         return self.levels[l].mask_u * rc
 
-    def vcycle(self, l, state, b, x0):
-        """One V-cycle: the smoother block is used both pre and post,
-        matching PETSc's default of reusing mg_levels as down/up
+    def vcycle(self, l, state, b, x0, ncoarse=1):
+        """One V-cycle (ncoarse=2: W-cycle, two coarse corrections on
+        every level above 1): the smoother block is used both pre and
+        post, matching PETSc's default of reusing mg_levels as down/up
         smoother."""
         if l == 0:
             return self._coarse_solve(state, b)
         x = self._smooth(l, state, b, x0)
-        r = b - self.level_apply(l, state["level_ops"][l], x)
-        rc = self._restrict(l - 1, state, r)
-        xc = self.vcycle(l - 1, state, rc, None)
-        x = x + self._prolong(l - 1, state, xc)
+        for _ in range(ncoarse if l > 1 else 1):
+            r = b - self.level_apply(l, state["level_ops"][l], x)
+            rc = self._restrict(l - 1, state, r)
+            xc = self.vcycle(l - 1, state, rc, None, ncoarse=ncoarse)
+            x = x + self._prolong(l - 1, state, xc)
         return self._smooth(l, state, b, x)
 
     def fmg(self, state, b):
@@ -437,9 +534,9 @@ class VelocityMG:
 
     def make_solve_A(self, state):
         """rv -> MG-approximate A^{-1} rv (one Richardson iteration from
-        zero = one full multigrid cycle)."""
-
-        def solve_A(rv):
-            return self.fmg(state, rv)
-
-        return solve_A
+        zero = one cycle of the configured kind)."""
+        if self.cycle == "full":
+            return lambda rv: self.fmg(state, rv)
+        ncoarse = 2 if self.cycle == "w" else 1
+        return lambda rv: self.vcycle(self.nlevels - 1, state, rv, None,
+                                      ncoarse=ncoarse)

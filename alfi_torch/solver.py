@@ -10,13 +10,21 @@ The port has the modes
               dense LU (:346-352);
 * ``almg``  — the same, velocity block by one full-multigrid cycle with
               patch smoothers (additive, or multiplicative colour sweeps)
-              and Schoeberl transfers (:353-379),
+              and Schoeberl transfers (:353-379);
+* ``alamg`` — the same, velocity block by one smoothed-aggregation AMG
+              V-cycle (:380-384), the algebraic baseline;
+* ``simple``, ``lsc`` — gamma set to 0, velocity block by the AMG
+              V-cycle, Schur complement by the pressure mass or the
+              Least-Squares Commutator (:423-460),
 
 on ``ConstantPressureSolver`` ([Pk]^d - P0) and ``ScottVogeliusSolver``
 ([Pk]^d - DG(k-1), exact grad-div), the uniform, bary and uniformbary
 hierarchies, star and macrostar patches, and optional SUPG/GLS or
 Burman stabilisation carried through the Newton Jacobian and the
-multigrid level and patch operators.  Every tensor lives on ``device``:
+multigrid level and patch operators; with the adjoint solve of a scalar
+functional (:meth:`NavierStokesSolver.setup_adjoint`) and the velocity
+prolonged to ``nref_vis`` extra refinements for output
+(``visprolong``).  Every tensor lives on ``device``:
 the card (``"cuda"``) unless the caller asks for another; nothing falls
 back to another device.
 """
@@ -37,7 +45,13 @@ from .fem import (
     lagrange,
     pk_facet_bubble,
 )
-from .solvers.fieldsplit import SchurPC, pressure_nullspace_projector
+from .solvers.batched_lu import coarse_factor, coarse_solve
+from .solvers.fieldsplit import (
+    LSCSchurPC,
+    SchurPC,
+    pressure_laplacian,
+    pressure_nullspace_projector,
+)
 from .solvers.krylov import fgmres
 from .solvers.linear import (
     assemble_dense_mixed,
@@ -45,6 +59,7 @@ from .solvers.linear import (
     flatten_mixed,
     lu_solve_closure,
     make_jacobian_matvec,
+    make_jacobian_rmatvec,
     unflatten_mixed,
 )
 from .solvers.newton import newton
@@ -68,25 +83,18 @@ class NavierStokesSolver:
                  restriction=False, smoothing=None,
                  rebalance_vertices=False, hierarchy_callback=None,
                  high_accuracy=False, verbose=True, *, device="cuda"):
-        if solver_type in ("alamg", "simple", "lsc"):
-            raise NotImplementedError(
-                "solver_type %r is not ported yet: ROADMAP.md Queue 1 "
-                "item 10f" % solver_type)
-        if solver_type not in ("lu", "allu", "almg"):
+        if solver_type not in ("lu", "allu", "almg", "alamg", "simple",
+                               "lsc"):
             raise ValueError("solver_type %r" % solver_type)
         if patch_composition not in ("additive", "multiplicative"):
             raise ValueError("patch_composition %r" % patch_composition)
-        # each kwarg of the reference the port has not ported yet takes
-        # only the reference's default; use_mkl is accepted and unused,
-        # as in the reference
-        for bad, what, item in [
-                (nref_vis != 0, "nref_vis %r (visprolong)" % nref_vis,
-                 "10h"),
-                (rebalance_vertices, "rebalance_vertices", "12")]:
-            if bad:
-                raise NotImplementedError(
-                    "%s is not ported yet: ROADMAP.md Queue 1 item %s"
-                    % (what, item))
+        # rebalance_vertices (the distributed partitioner's) takes only the
+        # reference's default; use_mkl is accepted and unused, as in the
+        # reference
+        if rebalance_vertices:
+            raise NotImplementedError(
+                "rebalance_vertices is not ported yet: ROADMAP.md Queue 1 "
+                "item 12")
         if stabilisation_type == "none":
             stabilisation_type = None
         if stabilisation_type not in (None, "supg", "gls", "burman"):
@@ -127,6 +135,12 @@ class NavierStokesSolver:
         self.char_L = problem.char_length()
         self.char_U = problem.char_velocity()
         self.gamma = float(gamma)
+        if solver_type in ("simple", "lsc"):
+            # the non-AL baselines run without grad-div augmentation
+            # (alfi/solver.py:127-128)
+            if self.verbose:
+                print("Setting gamma to 0")
+            self.gamma = 0.0
         self.nu_val = 1.0
         self.advect_val = 0.0
 
@@ -153,6 +167,38 @@ class NavierStokesSolver:
         self._setup_stabilisation()
         self._tolerances()
         self._build_step_functions()
+        self._setup_visprolong(nref_vis)
+
+    def _setup_visprolong(self, nref_vis):
+        """Visualisation refinement (the reference's visprolong,
+        alfi/solver.py:135-162): ``visprolong(u)`` prolongs the velocity
+        to ``nref_vis`` extra uniform refinements of the fine mesh and
+        returns (u, mesh, space) there."""
+        self.nref_vis = nref_vis
+        if not nref_vis:
+            self.visprolong = lambda u: (u, self.mesh, self.Z.V)
+            return
+        from .mesh.hierarchy import MeshHierarchy
+        from .mesh.refine import refine_uniform
+        from .mg.transfer import prolongation
+
+        meshes = [self.mesh]
+        for _ in range(nref_vis):
+            meshes.append(refine_uniform(meshes[-1]))
+        vh = MeshHierarchy(meshes, "uniform")
+        elem = self.Z.V.element
+        spaces = [self.Z.V] + [VectorFunctionSpace(m, elem)
+                               for m in meshes[1:]]
+        transfers = [prolongation(vh, l, spaces[l], spaces[l + 1],
+                                  device=self.device)
+                     for l in range(nref_vis)]
+
+        def visprolong(u):
+            for t in transfers:
+                u = t.apply(u)
+            return (u, meshes[-1], spaces[-1])
+
+        self.visprolong = visprolong
 
     # ------------------------------------------------------------------
     # subclass hooks
@@ -213,28 +259,34 @@ class NavierStokesSolver:
             mask_u = bcset.mask[0]
             d = self.tdim
 
-            def make_solve_A(z, params, tstate):
+            def make_pc(z, params, tstate):
                 flat_solve = lu_solve_closure(
                     assemble_dense_velocity(form, z[0], params, mask_u))
-                return lambda rv: flat_solve(rv.reshape(-1)).reshape(-1, d)
+                return SchurPC(form, mask_u, lambda rv: flat_solve(
+                    rv.reshape(-1)).reshape(-1, d))
 
-            lin = self._schur_fgmres_step(make_solve_A, project)
-        else:
+            lin = self._schur_fgmres_step(make_pc, project)
+        elif self.solver_type == "almg":
             lin = self._build_almg_step(project)
+        else:
+            # alamg and simple: the mass-matrix Schur PC; lsc: the Least-
+            # Squares Commutator
+            lin = self._build_alamg_step(
+                project, lsc=self.solver_type == "lsc")
         self._linear_step = lin
 
-    def _schur_fgmres_step(self, make_solve_A, project):
-        """The outer Krylov step of allu and almg: FGMRES (maxit 500,
-        restart 30) on the matrix-free Jacobian under the Schur-complement
-        preconditioner, whose velocity solve ``make_solve_A(z, params,
-        tstate)`` builds at each Newton step."""
+    def _schur_fgmres_step(self, make_pc, project):
+        """The outer Krylov step of allu, almg and the AMG modes: FGMRES
+        (maxit 500, restart 30) on the matrix-free Jacobian under the
+        Schur-complement preconditioner that ``make_pc(z, params,
+        tstate)`` builds at each Newton step (kept as
+        ``self._make_schur_pc`` for the adjoint)."""
         form, bcset = self.form, self.bcset
         tol = self.tolerances
-        mask_u = bcset.mask[0]
+        self._make_schur_pc = make_pc
 
         def lin(z, F, params, tstate):
-            pc = SchurPC(form, mask_u, make_solve_A(z, params, tstate)
-                         ).make_apply(params)
+            pc = make_pc(z, params, tstate).make_apply(params)
             J = make_jacobian_matvec(form.residual, bcset, z, params)
             dz, info = fgmres(
                 J, tscale(-1.0, F), pc=pc, rtol=tol["ksp_rtol"],
@@ -256,12 +308,123 @@ class NavierStokesSolver:
         self._transfer_setup = (
             lambda params: vmg.transfer_setup(params, static["schoeberl"]))
 
-        def make_solve_A(z, params, tstate):
-            return vmg.make_solve_A(vmg.setup(
-                z[0], params, schoeberl_state=tstate, static=static,
-                p_fine=z[1]))
+        form, mask_u = self.form, self.bcset.mask[0]
 
-        return self._schur_fgmres_step(make_solve_A, project)
+        def make_pc(z, params, tstate):
+            return SchurPC(form, mask_u, vmg.make_solve_A(vmg.setup(
+                z[0], params, schoeberl_state=tstate, static=static,
+                p_fine=z[1])))
+
+        return self._schur_fgmres_step(make_pc, project)
+
+    def _build_alamg_step(self, project, lsc=False):
+        """The AMG modes' step: the velocity solve is one AMG V-cycle at
+        each Newton step; with ``lsc`` the Schur PC is LSCSchurPC, whose
+        B A B^T applies the AMG fine operator of the same set-up."""
+        from .mg.amg import VelocityAMG
+
+        self.vamg = VelocityAMG(self)
+        vamg = self.vamg
+        form, mask_u = self.form, self.bcset.mask[0]
+        # B M B^T depends on the mesh and the BCs only
+        L = pressure_laplacian(form, mask_u) if lsc else None
+
+        def make_pc(z, params, tstate):
+            state = vamg.setup(z[0], params, p_fine=z[1])
+            solve_A = vamg.make_solve_A(state)
+            if L is None:
+                return SchurPC(form, mask_u, solve_A)
+            return LSCSchurPC(form, mask_u, solve_A,
+                              lambda v: vamg.level_apply(state["vals"], v),
+                              self.nsp, L=L)
+
+        return self._schur_fgmres_step(make_pc, project)
+
+    # ------------------------------------------------------------------
+    def setup_adjoint(self, functional):
+        """Adjoint solve of a scalar functional J(z) (alfi/solver.py:
+        520-535: the reference forms L = F.z_adj + J and solves
+        derivative(L, z) = 0, the linear system F_z(z)^T z_adj = -dJ/dz
+        with homogenised BCs, reusing the solver's parameters).
+        ``functional``: (u, p) -> 0-d tensor, differentiable by
+        torch.func.  Call :meth:`solve_adjoint` after a forward solve."""
+        self._adjoint_functional = functional
+
+    def solve_adjoint(self):
+        """Solve the adjoint system at the current state; returns (z_adj,
+        info_dict).  The operator is the transposed masked Jacobian, M
+        J^T M v + (I - M) v, with J^T from one torch.func.vjp of the
+        residual at z.  ``lu`` solves with the transpose of the dense
+        mixed matrix (the other branch of the same in-place factors),
+        refined once against that operator; the Krylov modes run FGMRES on
+        it under the forward mode's Schur PC at the current state (a legal
+        FGMRES preconditioner for J^T; PETSc assembles the exact
+        transpose)."""
+        functional = getattr(self, "_adjoint_functional", None)
+        if functional is None:
+            raise RuntimeError("call setup_adjoint(functional) first")
+        params = self.params()
+        z = self.z
+        bcset, form, Z = self.bcset, self.form, self.Z
+        tol = self.tolerances
+        project = pressure_nullspace_projector(Z) if self.nsp else None
+
+        # homogenised adjoint rhs: -dJ/dz, zero at BC dofs
+        rhs = bcset.zero(torch.func.grad(functional)(z))
+        if project is not None:
+            rhs = project(rhs)
+
+        JT = make_jacobian_rmatvec(form.residual, bcset, z, params)
+        start = _time.perf_counter()
+        if self.solver_type == "lu":
+            # the transpose solve, then one step of f64 iterative
+            # refinement against the matrix-free J^T: at the bench config
+            # (kappa ~ 1e10) the solve alone leaves a residual of 2e-6
+            # relative to dJ/dz
+            fac = coarse_factor(assemble_dense_mixed(form, z, params, bcset))
+            b = -flatten_mixed(rhs)
+            x = coarse_solve(fac, b, transpose=True)
+            r = b - flatten_mixed(JT(unflatten_mixed(x, Z)))
+            x = x + coarse_solve(fac, r, transpose=True)
+            del fac
+            z_adj = bcset.zero(unflatten_mixed(x, Z))
+            iters = 1
+        else:
+            pc = self._make_adjoint_pc(z, params,
+                                       self._transfer_setup(params))
+            z_adj, info = fgmres(
+                JT, tscale(-1.0, rhs), pc=pc, rtol=tol["ksp_rtol"],
+                atol=tol["ksp_atol"], maxit=500, restart=30,
+                project=project)
+            z_adj = bcset.zero(z_adj)
+            iters = int(info["iters"])
+        elapsed = _time.perf_counter() - start
+        if self.nsp:
+            u, p = z_adj
+            z_adj = (u, p - torch.mean(p))
+        self.z_adj = z_adj
+        self.message(GREEN % (
+            "Adjoint solve in %d Krylov iterations (%.2f s)"
+            % (iters, elapsed)))
+        return z_adj, {"linear_iter": iters, "time": elapsed / 60.0}
+
+    def _make_adjoint_pc(self, z, params, tstate):
+        """The forward mode's Schur PC at the current state (for the AMG
+        modes too, which the JAX package's adjoint does not build); for
+        allu the dense velocity block's factors solved by their
+        transpose."""
+        if self.solver_type != "allu":
+            return self._make_schur_pc(z, params, tstate).make_apply(params)
+        mask_u = self.bcset.mask[0]
+        fac = coarse_factor(assemble_dense_velocity(self.form, z[0], params,
+                                                    mask_u))
+        d = self.tdim
+
+        def solve_A(rv):
+            return coarse_solve(fac, rv.reshape(-1),
+                                transpose=True).reshape(-1, d)
+
+        return SchurPC(self.form, mask_u, solve_A).make_apply(params)
 
     # ------------------------------------------------------------------
     def message(self, msg):

@@ -38,7 +38,10 @@ def coarse_factor(A):
     return torch.linalg.lu_factor(At, out=(At, piv))
 
 
-def coarse_solve(fac, b):
-    """Solve A x = b with a :func:`coarse_factor` result; b is (N,)."""
+def coarse_solve(fac, b, transpose=False):
+    """Solve A x = b (``transpose``: A^T x = b, the adjoint solve) with a
+    :func:`coarse_factor` result; b is (N,).  The factors are A^T's, so
+    A's solve takes their adjoint and A^T's the plain branch."""
     LU, piv = fac
-    return torch.linalg.lu_solve(LU, piv, b[:, None], adjoint=True)[:, 0]
+    return torch.linalg.lu_solve(LU, piv, b[:, None],
+                                 adjoint=not transpose)[:, 0]

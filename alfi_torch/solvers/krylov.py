@@ -1,4 +1,5 @@
-"""Flexible GMRES over tensor / tuple vectors (eager PyTorch).
+"""Flexible GMRES, CG and Chebyshev over tensor / tuple vectors (eager
+PyTorch).
 
 Replacement for the PETSc ``ksp_type fgmres`` the reference configures
 (alfi/solver.py:305-514), ported from the JAX package's
@@ -20,7 +21,16 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.tree import leaves, tmap, tnorm, tscale, tsub, tzeros_like
+from ..utils.tree import (
+    leaves,
+    taxpy,
+    tdot,
+    tmap,
+    tnorm,
+    tscale,
+    tsub,
+    tzeros_like,
+)
 
 _EPS = 1e-300
 
@@ -174,3 +184,70 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
         "converged": None if fixed else float(rnorm) <= target,
     }
     return x, info
+
+
+def cg(A, b, pc=None, x0=None, rtol=1e-8, atol=1e-50, maxit=200,
+       project=None):
+    """Preconditioned CG with the unpreconditioned-norm convergence test
+    (``ksp_norm_type unpreconditioned`` of the reference's grad-div
+    harness, examples/graddiv/graddiv.py:90-96): stop when ||r|| <=
+    max(rtol * ||r0||, atol), r the projected residual.  The recurrences
+    are the JAX package's ``solvers/krylov.py:cg``; the test reads the
+    residual norm on the host, one synchronisation per iteration.
+
+    Returns (x, info) with info = dict(iters, rnorm, rnorm0, converged)."""
+    if pc is None:
+        pc = _identity
+    if project is None:
+        project = _identity
+    if x0 is None:
+        x0 = tzeros_like(b)
+    b = project(b)
+    r = tsub(b, project(A(x0)))
+    rnorm0 = tnorm(r)
+    target = max(rtol * float(rnorm0), atol)
+    z = pc(r)
+    p = z
+    rz = tdot(r, z)
+    x, it, rnorm = x0, 0, rnorm0
+    while float(rnorm) > target and it < maxit:
+        Ap = project(A(p))
+        alpha = rz / (tdot(p, Ap) + _EPS)
+        x = taxpy(alpha, p, x)
+        r = taxpy(-alpha, Ap, r)
+        z = pc(r)
+        rz_new = tdot(r, z)
+        beta = rz_new / (rz + _EPS)
+        p = taxpy(beta, p, z)
+        rz = rz_new
+        it += 1
+        rnorm = tnorm(r)
+    return x, {"iters": it, "rnorm": rnorm, "rnorm0": rnorm0,
+               "converged": float(rnorm) <= target}
+
+
+def chebyshev(A, b, pc, x0=None, maxit=2, lmin=None, lmax=None,
+              eig_scale=(0.1, 1.1)):
+    """Chebyshev smoother, ``maxit`` fixed steps (the grad-div harness's
+    level smoother, examples/graddiv/graddiv.py:99-111): linear in b, so
+    that the cycle stays a valid CG preconditioner.  Bounds of the
+    preconditioned operator: with no ``lmin``, (0.1, 1.1) * ``lmax``.
+    The recurrences are the JAX package's ``solvers/krylov.py:chebyshev``."""
+    if x0 is None:
+        x0 = tzeros_like(b)
+    if lmin is None:
+        lmin = eig_scale[0] * lmax
+        lmax = eig_scale[1] * lmax
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    x, d, alpha = x0, tzeros_like(b), 0.0
+    for i in range(maxit):
+        r = pc(tsub(b, A(x)))
+        if i == 0:
+            beta, alpha = 0.0, 1.0 / theta
+        else:
+            beta = (0.5 * delta * alpha) ** 2
+            alpha = 1.0 / (theta - beta / (alpha + _EPS))
+        d = tmap(lambda dd, rr: beta * dd + rr, d, r)
+        x = taxpy(alpha, d, x)
+    return x

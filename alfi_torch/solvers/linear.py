@@ -4,7 +4,8 @@ system (the reference's "lu"/"allu" branches, alfi/solver.py:396-421).
 * the matrix-free Jacobian action is ``torch.func.jvp`` of the residual
   (the JAX package uses ``jax.linearize``, which evaluates the primal
   once; ``jvp`` evaluates it again on every call — one extra residual
-  per outer Krylov iteration);
+  per outer Krylov iteration); its transpose, for the adjoint solve, one
+  ``torch.func.vjp`` of the residual;
 * dense operators are assembled from per-cell element tensors (the whole
   mixed Jacobian for ``lu``, the velocity block for ``allu`` and the MG
   coarse grid) and, with Burman's stabilisation, per-interior-facet
@@ -49,6 +50,21 @@ def make_jacobian_matvec(residual_fn, bcset, z, params):
         return bcset.identity_rows(bcset.zero_rows(Jv), v)
 
     return matvec
+
+
+def make_jacobian_rmatvec(residual_fn, bcset, z, params):
+    """v -> the transpose of :func:`make_jacobian_matvec`'s operator,
+    M J(z)^T M v + (I - M) v: J^T from one torch.func.vjp of the raw
+    residual at z, whose function every application reuses (the adjoint
+    solve's operator; the JAX package transposes the masked jvp with
+    jax.linear_transpose)."""
+    _, vjp = torch.func.vjp(lambda zz: residual_fn(zz, params), z)
+
+    def rmatvec(v):
+        (JTv,) = vjp(bcset.zero_rows(v))
+        return bcset.identity_rows(bcset.zero(JTv), v)
+
+    return rmatvec
 
 
 def vector_rows(space):

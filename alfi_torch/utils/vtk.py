@@ -19,6 +19,11 @@ def write_vtu(path, mesh, Z, z):
     _write(path, mesh, u, p)
 
 
+def write_velocity_vtu(path, mesh, u):
+    """Velocity-only file (for visprolong-refined fields)."""
+    _write(path, mesh, np.asarray(u), np.zeros(mesh.num_cells))
+
+
 def _write(path, mesh, u, pc):
     d = mesh.dim
     nv = mesh.num_vertices

@@ -49,6 +49,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (phase 16's solvers: the bench config's levels 2 and 1 and the 3D
    cavity baseN=2 nref=1's level 1), each as its sweep calls it (bare),
    with the number of colours and the launches per symmetrised sweep;
+3d. KA over the AMG Galerkin map of the bench config (phase 18's alamg
+   solver: 1,020,100 dense entries of the level-1 matrix from about 118 M
+   per-cell contributions, those of zero weight left out) against its
+   plain version (<= 1e-13 relative, two launches bitwise equal), with
+   device times warm and cold, the byte bound (sources, map, output) and
+   ``index_put_(accumulate=True)`` of the same contributions as the
+   library call; KM on the AMG fine operator is 3b's "level L2" table
+   (the same pattern, checked), not timed again;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -131,12 +139,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    logs (results/torch_h100/iters_ldc2d_nref2_re100_multiplicative_jax_cpu.log
    and iters_ldc3d_p2fb_nref1_re100_multiplicative_jax_cpu.log); K1 and KM
    launches per Krylov iteration printed;
+17. the grad-div study (``alfi_torch.examples.graddiv``, smoothing 3) at
+   the Makefile's 2D comparisons, pkp0 baseN=8 nref=2 k=2 and SV (bary,
+   macrostar) baseN=6 nref=2 k=2: patch and Jacobi, each with and without
+   the Schoeberl transfer, and AMG, at the eight gamma of the harness,
+   held to the JAX package's CPU logs
+   (results/torch_h100/graddiv2d_{pkp0,sv}_jax_cpu.log): patch + transfer
+   equal at every gamma, the other rows ">200" where the log says so and
+   elsewhere within 10 % or 2 iterations; K1, KM, KA and KG launched;
+18. the algebraic baselines: alamg (gamma 1e4), simple and lsc (gamma
+   0) at the small config over Re 1, 10, 100 with the JAX package's
+   Newton counts and Krylov within one per Newton step (alamg: 2 %), and at
+   the bench config (simple Re 1 -> 10 -> 100; alamg and lsc, whose every
+   linear solve there runs to maxit 500, Re 1 alone), each Re converged or
+   not as the JAX package's CPU logs
+   (results/torch_h100/iters_ldc2d_nref2_re100_*_jax_cpu.log) say, with
+   their counts by the same rule, or, where every linear solve of the log
+   stops at maxit, with every one of the card's but the last at maxit
+   too (BASELINE_MAXIT says why); the papers' contrast: alamg's Re 1 at
+   least 3x phase 5's Krylov count, simple's Krylov per Newton at Re 100
+   and lsc's at Re 1 above almg's at every Re; n1, kmax, the map's size
+   and each mode's peak device memory;
+19. the adjoint at the bench config: Re 1 -> 10 by lu, allu and almg,
+   then ``solve_adjoint`` of the kinetic energy: |J^T lambda + dJ/dz|
+   (BC rows out, mean-projected) < 1e-6 relative, allu's and almg's lambda
+   within 1e-5 of lu's (pressure mean removed), almg in fewer than 100
+   Krylov iterations; then one ``--nref-vis 1 --paraview`` solve through
+   the driver, whose refined VTU file holds the refined mesh's vertices
+   and finite values;
 
 then print the kernel table as one JSON line (every K1 table of phases
 3 to 3c in the variant its main path calls, and KM and KA of every level
 table, with the launches of the phase that drives it: 7 for the 2D
 tables, 6 for nref=3, 9 and 10 for the 3D ones, 11 and 12 for the
-Scott-Vogelius ones, 16 for the colour tables) and, last, the
+Scott-Vogelius ones, 16 for the colour tables, 18 for the Galerkin map)
+and, last, the
 result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
@@ -251,6 +288,49 @@ DFG_DOFS = 56736
 #: config and at the 3D cavity baseN=2 nref=1 (results/torch_h100/)
 MULT_JAX = [(6, 2), (5, 2), (8, 3)]
 MULT3D_JAX = [(3, 2), (3, 2), (4, 3)]
+#: the grad-div study (examples/Makefile pkp02dcomparison, sv2dcomparison)
+#: at the reference's 2D widths, smoothing 3 (the harness's default), and
+#: the JAX package's CPU logs of both targets (results/torch_h100/)
+GRADDIV_RUNS = [
+    ("pkp0", ["--dim", "2", "--discretisation", "pkp0", "--baseN", "8",
+              "--nref", "2", "--k", "2"],
+     os.path.join("results", "torch_h100", "graddiv2d_pkp0_jax_cpu.log")),
+    ("sv", ["--dim", "2", "--discretisation", "sv", "--mh", "bary",
+            "--patch", "macro", "--baseN", "6", "--nref", "2", "--k", "2"],
+     os.path.join("results", "torch_h100", "graddiv2d_sv_jax_cpu.log"))]
+#: smoother x transfer rows of each target, and the AMG row
+GRADDIV_ROWS = [["--smoother", "patch", "--transfer"],
+                ["--smoother", "patch"],
+                ["--smoother", "jacobi", "--transfer"],
+                ["--smoother", "jacobi"],
+                ["--smoother", "amg"]]
+#: the algebraic baselines at the small config (ldc2d baseN=4 nref=1),
+#: Re 1, 10, 100: the JAX package's counts on the CPU
+BASELINE_SMALL = {"alamg": [(330, 2), (358, 2), (781, 3)],
+                  "simple": [(54, 3), (43, 2), (126, 3)],
+                  "lsc": [(72, 3), (52, 2), (94, 3)]}
+#: and at the bench config: the Re of each mode (simple the whole ladder;
+#: alamg and lsc, whose every linear solve there runs to FGMRES's maxit
+#: 500, Re 1, the rest of their ladders through the harness, logs under
+#: results/torch_h100/) and the JAX package's CPU logs
+BASELINE_BENCH_RES = {"alamg": [1], "simple": [1, 10, 100], "lsc": [1]}
+#: FGMRES's maxit in every mode: where each linear solve of a JAX log
+#: stops there, the Newton trajectory those unconverged solves drive is
+#: not reproducible bit for bit (the card's scatter-adds are atomic):
+#: lsc at Re 1 took 1,500/3 in three runs on the card and 1,977/4 in a
+#: fourth.  Such a solve is held to: converged as the log says, every
+#: linear solve at maxit but possibly the last.
+BASELINE_MAXIT = 500
+BASELINE_BENCH_LOGS = {
+    mode: os.path.join("results", "torch_h100",
+                       "iters_ldc2d_nref2_re100_%s_jax_cpu.log" % mode)
+    for mode in ("alamg", "simple", "lsc")}
+#: the adjoint (tests/test_adjoint.py's rules): J^T lambda + dJ/dz
+#: relative to dJ/dz, and the modes' lambda against lu's
+ADJOINT_RESID_TOL, ADJOINT_TOL = 1e-6, 1e-5
+#: almg's adjoint Krylov count of the JAX package on the CPU at ldc2d
+#: baseN=4 nref=1 (tests/test_torch_adjoint.py holds the port to it there)
+ADJOINT_ALMG_JAX_SMALL = 10
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -269,7 +349,10 @@ PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
                "(pallas_call at :81; deleted in aaee1ce)")
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 and :449 (plain-XLA "
                    "level_apply, cell and facet branches; no Pallas kernel)")
-REPLACES = {"K1": PALLAS_GEMV, "KM": XLA_LEVEL_APPLY, "KA": XLA_LEVEL_APPLY}
+REPLACES = {"K1": PALLAS_GEMV, "KM": XLA_LEVEL_APPLY, "KA": XLA_LEVEL_APPLY,
+            "KG": "alfi_tpu/mg/amg.py:239-255 (VelocityAMG._galerkin1, a "
+                  "plain-XLA scatter into the dense level-1 matrix; no "
+                  "Pallas kernel)"}
 
 
 def _median_ms(fn, reps=15, inner=20):
@@ -594,8 +677,9 @@ def _check_merged(name, vmg, l, rng, flush):
     p = op.pattern
     nvals = p.nnzb * op.d * op.d
     dest = torch.full((p.nsource,), nvals, dtype=torch.int64, device=dev)
-    dest[op.amap_src.long()] = torch.repeat_interleave(
-        torch.arange(nvals, device=dev), torch.diff(op.amap_ptr.long()))
+    amap = op.assembly
+    dest[amap.amap_src.long()] = torch.repeat_interleave(
+        torch.arange(nvals, device=dev), torch.diff(amap.amap_ptr.long()))
 
     def ka_library():
         return src.new_zeros(nvals + 1).index_add_(0, dest, src)
@@ -796,12 +880,13 @@ def _profile_linear_step(solver):
 
 
 def _launches():
-    """Kernel launches per use (K1, K2) and kernel (KM, KA) since the
-    last reset_launch_counts()."""
+    """Kernel launches per use (K1, K2) and kernel (KM, KA; KG, KA over
+    the AMG Galerkin maps) since the last reset_launch_counts()."""
     from alfi_torch import kernels
 
     return {**kernels.GatherGemvScatter.launches,
-            **kernels.MergedLevelOperator.launches}
+            **kernels.MergedLevelOperator.launches,
+            **kernels.MapAssembly.launches}
 
 
 def _table_launches():
@@ -813,6 +898,9 @@ def _table_launches():
            for t in kernels.GatherGemvScatter._tables_alive}
     for op in kernels.MergedLevelOperator._tables_alive:
         out.update(((id(op), k), v) for k, v in op.launched.items())
+    for op in kernels.MapAssembly._tables_alive:
+        if op.key == "KG":
+            out[(id(op), "KG")] = op.launched
     return out
 
 
@@ -975,19 +1063,21 @@ def _solve_sweep(solver, res, keep=None):
     return rows, t_all
 
 
-def _log_solves(path):
-    """(Krylov, Newton) of every solve a solver log records, in order."""
+def _log_solves(path, converged=False):
+    """(Krylov, Newton) of every solve a solver log records, in order;
+    with ``converged``, (Krylov, Newton, converged)."""
     import re as _re
 
-    out, newton = [], None
+    out, newton, conv = [], None, None
     with open(path) as f:
         for line in f:
-            m = _re.search(r"Nonlinear solve \S+ in (\d+) iterations", line)
+            m = _re.search(r"Nonlinear solve (\S+) in (\d+) iterations", line)
             if m:
-                newton = int(m.group(1))
+                conv, newton = m.group(1) == "converged", int(m.group(2))
             m = _re.search(r"Time taken: .* in (\d+) iterations", line)
             if m:
-                out.append((int(m.group(1)), newton))
+                out.append((int(m.group(1)), newton) + ((conv,) if converged
+                                                       else ()))
     return out
 
 
@@ -1140,6 +1230,337 @@ def _direct_phase(make, almg_u):
                                  % (re, d_lu, d_mg))
 
 
+def _check_galerkin(name, vamg, rng, flush):
+    """Phase 3d: KA over the AMG Galerkin map (``vamg.galerkin``, one chunk
+    at the bench config) against
+    its plain version on random contributions: max relative error <=
+    REL_TOL, two launches bitwise equal; device times warm and cold, the
+    byte bound (sources, map, output), the plain version's time and the
+    library call's, ``index_put_(accumulate=True)`` of every contribution
+    into its dense entry (the JAX package's scatter; its atomics make the
+    sums unrepeatable).  Returns the result dict."""
+    import torch
+
+    (_, _, g), = vamg.galerkin
+    dev = g.device
+    src = torch.as_tensor(rng.standard_normal(g.ncell), device=dev)
+    dest = torch.full((g.ncell,), g.nvals, dtype=torch.int64, device=dev)
+    dest[g.amap_src.long()] = torch.repeat_interleave(
+        torch.arange(g.nvals, device=dev), torch.diff(g.amap_ptr.long()))
+
+    def ka():
+        return g(src)
+
+    def ka_plain():
+        return g.plain(src)
+
+    def library():
+        return src.new_zeros(g.nvals + 1).index_put_((dest,), src,
+                                                     accumulate=True)
+
+    va, va2, vp = ka(), ka(), ka_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(va, va2):
+        raise AssertionError("%s: two KA launches differ" % name)
+    abs_err = float((va - vp).abs().max())
+    rel_err = abs_err / max(float(vp.abs().max()), 1e-300)
+    lib_err = float((library()[:g.nvals] - vp).abs().max())
+    if not (rel_err <= REL_TOL and lib_err <= 1e-12 * float(vp.abs().max())):
+        raise AssertionError("%s: KA vs plain max rel err %.3e (library "
+                             "%.3e)" % (name, rel_err, lib_err))
+    parts = {"sources": 8 * g.nsrc, "map": 4 * g.nsrc + 4 * (g.nvals + 1),
+             "values": 8 * g.nvals}
+    r = {"name": name, "kernel": "KG", "op": g, "abs_err": abs_err,
+         "rel_err": rel_err, "dev_ms": _device_ms(ka, only=KA_NAME),
+         "cold_ms": _device_ms(ka, only=KA_NAME, before=flush),
+         "plain_dev_ms": _device_ms(ka_plain),
+         # one launch of the library call takes seconds: time one
+        "library_dev_ms": _device_ms(library, reps=1)}
+    r["bound_ms"], r["bound_by"] = _bound_of(parts, float(g.nsrc))
+    print("%s: n1 %d, kmax %d, %d contributions (%.3f GB) -> %d map sources "
+          "(%.3f GB of int32) -> %d dense entries %8.2e | %s (cold %s) ms | "
+          "bound %.2f us %s, %s | plain %s | index_put_(accumulate=True) %s"
+          % (name, vamg.n1, vamg.kmax, g.ncell, 8e-9 * g.ncell, g.nsrc,
+             4e-9 * g.nsrc, g.nvals, rel_err, _fmt(r["dev_ms"]),
+             _fmt(r["cold_ms"]), 1e3 * r["bound_ms"], r["bound_by"],
+             _share(r["bound_ms"], r["dev_ms"]), _fmt(r["plain_dev_ms"]),
+             _fmt(r["library_dev_ms"])), flush=True)
+    return r
+
+
+def _graddiv_log_rows(path):
+    """The iteration cells of every run of a grad-div log, by its
+    arguments."""
+    rows, key = {}, None
+    with open(path) as f:
+        for line in f:
+            if line.startswith("=== python examples/graddiv.py "):
+                key = line[len("=== python examples/graddiv.py "):-5]
+            elif line.startswith("iters:") and key is not None:
+                rows[key] = [c.strip() for c in line.split(None, 1)[1]
+                             .strip().rstrip("\\").split("\t&")]
+    return rows
+
+
+def _graddiv_phase(label, base_argv, log_path):
+    """Phase 17: one 2D grad-div comparison through
+    ``alfi_torch.examples.graddiv`` (its output kept off the console),
+    every row held to the JAX package's CPU log: patch + transfer equal at
+    every gamma; the other rows ">200" where the log says so, elsewhere
+    within 10 % or 2 iterations, whichever is larger.  K1, KM, KA and KG
+    must have launched."""
+    import contextlib
+    import io
+
+    from alfi_torch import kernels
+    from alfi_torch.examples import graddiv
+
+    want = _graddiv_log_rows(log_path)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for row in GRADDIV_ROWS:
+        argv = base_argv + row
+        exact = row == ["--smoother", "patch", "--transfer"]
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = graddiv.main(argv)
+        jax_row = want[" ".join(argv)]
+        print("grad-div %s %s: %s (JAX CPU %s) in %.3f s"
+              % (label, " ".join(row[1:]), " ".join(got), " ".join(jax_row),
+                 time.perf_counter() - t1), flush=True)
+        for g, j, c in zip(got, jax_row, graddiv.GAMMAS):
+            if exact or j == ">200":
+                ok = g == j
+            else:
+                ok = g != ">200" and abs(int(g) - int(j)) <= max(
+                    2, 0.1 * int(j))
+            if not ok:
+                raise AssertionError("grad-div %s %s gamma=%g: %s iterations "
+                                     "against the JAX package's %s"
+                                     % (label, " ".join(row), c, g, j))
+    launches = _launches()
+    print("grad-div %s: %d rows in %.3f s; kernel launches %s"
+          % (label, len(GRADDIV_ROWS), time.perf_counter() - t0, launches),
+          flush=True)
+    if min(launches[k] for k in ("K1", "KM", "KA", "KG")) <= 0:
+        raise AssertionError("grad-div %s: a kernel of the path was not "
+                             "launched: %s" % (label, launches))
+
+
+def _baseline_phase(make, alamg_bench, almg_rows):
+    """Phase 18: the algebraic baselines.  (a) alamg, simple and lsc at the
+    small config over Re 1, 10, 100: Newton counts equal to
+    BASELINE_SMALL's, Krylov within one per Newton step (alamg: within 2 %
+    too).  (b) At the bench config, the Re of BASELINE_BENCH_RES, every Re
+    converges or not as in the JAX package's CPU logs, to a finite state,
+    with their counts by (a)'s rule, or, where every linear solve of the
+    log stops at maxit, by BASELINE_MAXIT's; alamg (gamma = 1e4) takes at
+    least 3x
+    phase 5's Krylov count (``almg_rows``) at Re 1 alone, simple's Krylov
+    per Newton at Re 100 and lsc's at Re 1 exceed almg's at every Re of
+    phase 5; KM and KG launch.
+    ``alamg_bench``: the bench alamg solver, whose Galerkin map phase 3d
+    checked.  Returns that solver's launches per table."""
+    import gc
+
+    import torch
+
+    from alfi_torch import kernels
+
+    def held(mode, counts, want):
+        for re, (k, n), (kj, nj) in zip(BENCH_RES, counts, want):
+            if kj == BASELINE_MAXIT * nj:
+                # every linear solve of the log stops at maxit: so must
+                # every one of the card's but the last
+                ok = BASELINE_MAXIT * (n - 1) < k <= BASELINE_MAXIT * n
+            else:
+                tol = max(nj, 0.02 * kj) if mode == "alamg" else nj
+                ok = n == nj and abs(k - kj) <= tol
+            if not ok:
+                raise AssertionError(
+                    "%s Re=%s: Krylov/Newton %d/%d against the JAX "
+                    "package's %d/%d" % (mode, re, k, n, kj, nj))
+
+    for mode, want in BASELINE_SMALL.items():
+        rows, total = _solve_sweep(make(4, 1, solver_type=mode), BENCH_RES)
+        counts = [(r[1], r[2]) for r in rows]
+        print("%s at the small config: Krylov/Newton %s (JAX CPU %s), %.3f s"
+              % (mode, counts, want, total), flush=True)
+        held(mode, counts, want)
+    here = os.path.dirname(os.path.abspath(__file__))
+    kpn_last, krylov, launched = {}, {}, {}
+    for mode in ("alamg", "simple", "lsc"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        solver = (alamg_bench if mode == "alamg"
+                  else make(16, 2, solver_type=mode))
+        res = BASELINE_BENCH_RES[mode]
+        want = _log_solves(os.path.join(here, BASELINE_BENCH_LOGS[mode]),
+                           converged=True)[:len(res)]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        counts = []
+        for re, (_, _, conv) in zip(res, want):
+            z, info = solver.solve(re)
+            finite = all(bool(torch.isfinite(x).all()) for x in z)
+            counts.append((info["linear_iter"], info["nonlinear_iter"]))
+            print("  Re=%-4s krylov=%-4d newton=%-2d %s" % (
+                re, counts[-1][0], counts[-1][1], "converged"
+                if info["converged"] else "DIVERGED"), flush=True)
+            if not (info["converged"] == conv and finite):
+                raise AssertionError(
+                    "%s Re=%s: converged %s (finite %s), the JAX package's "
+                    "%s" % (mode, re, info["converged"], finite, conv))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = _launches()
+        if mode == "alamg":
+            launched = _table_launches()
+        peak = torch.cuda.max_memory_allocated()
+        want = [w[:2] for w in want]
+        v = solver.vamg
+        nsrc = sum(g.nsrc for _, _, g in v.galerkin)
+        print("%s at the bench config (gamma %g): %d dofs, n1 %d, kmax %d, "
+              "Galerkin map %d sources (%.3f GB); Re %s in %.3f s, "
+              "Krylov/Newton %s (JAX CPU %s); peak device memory %.3f GB "
+              "(%.3f GB allocated at its start); kernel launches %s"
+              % (mode, solver.gamma, solver.Z.dim, v.n1, v.kmax,
+                 nsrc, 4e-9 * nsrc, res, total, counts,
+                 want, peak / 1e9, resident / 1e9, launches), flush=True)
+        held(mode, counts, want)
+        if min(launches["KM"], launches["KG"]) <= 0:
+            raise AssertionError("%s: KM or KG was not launched: %s"
+                                 % (mode, launches))
+        krylov[mode] = sum(k for k, _ in counts)
+        # the last Re run: 100 for simple, 1 for alamg and lsc
+        kpn_last[mode] = counts[-1][0] / counts[-1][1]
+        del solver, v
+    almg_krylov = sum(r[1] for r in almg_rows)
+    almg_kpn = max(r[1] / r[2] for r in almg_rows)
+    print("the papers' contrast at the bench config: alamg %d Krylov at Re 1 "
+          "against almg's %d over Re 1, 10, 100 (%.1fx); Krylov per Newton: "
+          "simple %.2f (Re 100), lsc %.2f (Re 1), almg at most %.2f"
+          % (krylov["alamg"], almg_krylov, krylov["alamg"] / almg_krylov,
+             kpn_last["simple"], kpn_last["lsc"], almg_kpn), flush=True)
+    if not (krylov["alamg"] >= 3 * almg_krylov
+            and min(kpn_last["simple"], kpn_last["lsc"]) > almg_kpn):
+        raise AssertionError("the baselines do not lose to almg at the "
+                             "bench config")
+    return launched
+
+
+def _kinetic_energy(z):
+    import torch
+
+    return 0.5 * torch.sum(z[0] * z[0])
+
+
+def _adjoint_phase(make, parser):
+    """Phase 19: at the bench config, Re 1 -> 10 by lu, allu and almg, then
+    the adjoint of the kinetic energy: J^T lambda + dJ/dz (BC rows out,
+    mean-projected) under ADJOINT_RESID_TOL relative, allu's and almg's
+    lambda within ADJOINT_TOL of lu's (pressure mean removed), almg in
+    fewer than 100 Krylov iterations; then one ``--nref-vis 1
+    --paraview`` solve through the driver, whose refined file must hold
+    the refined mesh's vertices and finite values."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alfi_torch import get_solver, run_solver
+    from alfi_torch.problems import TwoDimLidDrivenCavityProblem
+    from alfi_torch.solvers.linear import make_jacobian_rmatvec
+    from alfi_torch.utils.tree import tnorm
+
+    lam = {}
+    for mode in ("lu", "allu", "almg"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        s = make(16, 2, solver_type=mode)
+        _solve_sweep(s, [1, 10])
+        s.setup_adjoint(_kinetic_energy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z_adj, info = s.solve_adjoint()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        JTlam = make_jacobian_rmatvec(s.form.residual, s.bcset, s.z,
+                                      s.params())(z_adj)
+        rhs = s.bcset.zero(torch.func.grad(_kinetic_energy)(s.z))
+        r = tuple(a + b for a, b in zip(s.bcset.zero(JTlam), rhs))
+        if s.nsp:
+            r = (r[0], r[1] - torch.mean(r[1]))
+        resid = float(tnorm(r)) / max(1.0, float(tnorm(rhs)))
+        peak = torch.cuda.max_memory_allocated()
+        print("adjoint %s at the bench config: %d Krylov iterations in %.3f "
+              "s; |J^T lambda + dJ/dz| / max(1, |dJ/dz|) = %.3e; peak device "
+              "memory %.3f GB (%.3f GB allocated at its start)"
+              % (mode, info["linear_iter"], dt, resid, peak / 1e9,
+                 resident / 1e9), flush=True)
+        if not resid < ADJOINT_RESID_TOL:
+            raise AssertionError("adjoint %s: residual %.3e" % (mode, resid))
+        if mode == "almg":
+            print("almg adjoint: %d Krylov iterations at the bench config; "
+                  "the JAX package's CPU count at ldc2d baseN=4 nref=1: %d"
+                  % (info["linear_iter"], ADJOINT_ALMG_JAX_SMALL))
+            if not info["linear_iter"] < 100:
+                raise AssertionError("almg adjoint took %d Krylov iterations"
+                                     % info["linear_iter"])
+        lam[mode] = tuple(x.clone() for x in z_adj)
+        del s, z_adj, JTlam, r
+    u1, p1 = lam["lu"]
+    p1 = p1 - torch.mean(p1)
+    for mode in ("allu", "almg"):
+        u2, p2 = lam[mode]
+        p2 = p2 - torch.mean(p2)
+        du = float((u1 - u2).abs().max())
+        dp = float((p1 - p2).abs().max())
+        print("adjoint %s against lu: velocity %.3e, pressure (mean removed) "
+              "%.3e" % (mode, du, dp), flush=True)
+        if not (du < ADJOINT_TOL * (1.0 + float(u1.abs().max()))
+                and dp < ADJOINT_TOL * (1.0 + float(p1.abs().max()))):
+            raise AssertionError("adjoint %s differs from lu's" % mode)
+    del lam
+    # visprolong through the driver
+    args = parser.parse_args(["--discretisation", "pkp0", "--mh", "uniform",
+                              "--baseN", "16", "--nref", "2", "--k", "2",
+                              "--nref-vis", "1", "--paraview"])
+    solver = get_solver(args, TwoDimLidDrivenCavityProblem(args.baseN),
+                        device=torch.device("cuda"))
+    solver.verbose = False
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            run_solver(solver, [1], args)
+            path = os.path.join("output", str(solver.Z.dim),
+                                "velocity-refined-Re-1.vtu")
+            with open(path) as f:
+                text = f.read()
+            size = os.path.getsize(path)
+        finally:
+            os.chdir(cwd)
+    _, vmesh, vspace = solver.visprolong(solver.z[0])
+    block = text.split('Name="Velocity" NumberOfComponents="3" '
+                       'format="ascii">')[1].split("</DataArray>")[0]
+    vel = np.array(block.split(), dtype=float)
+    ok = (('NumberOfPoints="%d"' % vmesh.num_vertices) in text
+          and vel.size == 3 * vmesh.num_vertices
+          and bool(np.isfinite(vel).all()))
+    print("--nref-vis 1 --paraview at the bench config: %d vertices, %d "
+          "cells, %d velocity dofs on the refined mesh; %d bytes, finite: "
+          "%s" % (vmesh.num_vertices, vmesh.num_cells, vspace.ndof, size,
+                  ok), flush=True)
+    if not ok:
+        raise AssertionError("the refined VTU file is wrong")
+
+
 def main(kernels_only=False):
     import torch
 
@@ -1236,6 +1657,12 @@ def main(kernels_only=False):
         ThreeDimLidDrivenCavityProblem(2), nref=1, k=2, solver_type="almg",
         hierarchy="uniform", gamma=1e4, verbose=False,
         patch_composition="multiplicative"))
+    # phase 18's alamg at the bench config, whose Galerkin map phase 3d reads
+    t0 = time.perf_counter()
+    alamg_bench = make(16, 2, solver_type="alamg")
+    print("alamg bench solver built: %.2f s (aggregation, P, the fine "
+          "pattern and the Galerkin map on the host)"
+          % (time.perf_counter() - t0), flush=True)
 
     def tables(vmg, levels, tag=""):
         """(name, table, mask for the masked variant) of a hierarchy's K1
@@ -1291,6 +1718,19 @@ def main(kernels_only=False):
                 table += _check_kernel("K1 colour %sL%d c%d" % (tag, l, c),
                                        op, rng, flush_buf.zero_,
                                        bare_only=True)
+    # 3d. KA over the AMG Galerkin map of the bench config; KM on the AMG
+    # fine operator is phase 3b's "level L2" table (the same pattern)
+    same = (alamg_bench.vamg.level_op.pattern.nnzb
+            == head.vmg.level_ops[2].pattern.nnzb and np.array_equal(
+                alamg_bench.vamg.level_op.pattern.bcol,
+                head.vmg.level_ops[2].pattern.bcol))
+    print("KM on the AMG fine operator: the pattern of phase 3b's level L2 "
+          "(identical: %s), not timed again" % same, flush=True)
+    if not same:
+        raise AssertionError("the AMG fine pattern is not level L2's")
+    table.append(_check_galerkin("KA Galerkin bench", alamg_bench.vamg, rng,
+                                 flush_buf.zero_))
+    torch.cuda.empty_cache()
     # the list holds every hierarchy: drop it, so that the solver a later
     # phase deletes is freed and each sweep's peak is its own
     del flush_buf, levels, vmg
@@ -1331,6 +1771,7 @@ def main(kernels_only=False):
     kernels.reset_launch_counts()
     bench_u = []
     rows, t_bench = _solve_sweep(bench, BENCH_RES, keep=bench_u)
+    bench_rows = rows
     launches = _launches()
     krylov = sum(r[1] for r in rows)
     newton = sum(r[2] for r in rows)
@@ -1487,15 +1928,33 @@ def main(kernels_only=False):
         _check_levels(label, solver, launches)
         launched.update((k, v) for k, v in _table_launches().items() if v)
     _profile_linear_step(mult)
+    del mult, mult3d, solver
+    torch.cuda.empty_cache()
+
+    # 17. the grad-div study at the reference's 2D widths
+    for label, argv, log in GRADDIV_RUNS:
+        _graddiv_phase(label, argv, os.path.join(here, log))
+        torch.cuda.empty_cache()
+
+    # 18. the algebraic baselines, small and at the bench config
+    launched.update((k, v) for k, v in _baseline_phase(
+        make, alamg_bench, bench_rows).items() if v)
+    del alamg_bench
+    torch.cuda.empty_cache()
+
+    # 19. the adjoint and visprolong at the bench config
+    _adjoint_phase(make, parser)
+    torch.cuda.empty_cache()
 
     sources = {"K1": os.path.relpath(kernels.SOURCE, here),
                "KM": os.path.relpath(kernels.LEVEL_SOURCE, here)}
-    sources["KA"] = sources["KM"]
+    sources["KA"] = sources["KG"] = sources["KM"]
     entries = []
     for r in table:
         if r["op"] is None:
             continue  # not the variant the main path calls
-        use = r["kernel"] if r["kernel"] in ("KM", "KA") else r["op"].use
+        use = (r["kernel"] if r["kernel"] in ("KM", "KA", "KG")
+               else r["op"].use)
         n_launch = launched.get((id(r["op"]), use), 0)
         if n_launch <= 0:
             raise AssertionError("%s: the main path never launched this "
@@ -1504,6 +1963,11 @@ def main(kernels_only=False):
             name = "gather_gemv_scatter %s kernel (%s, %d x %d, %s)" % (
                 r["kernel"], r["name"], r["shape"][0], r["shape"][1],
                 "masked" if r["masked"] else "bare")
+        elif use == "KG":
+            g = r["op"]
+            name = ("level_operator assembly over the AMG Galerkin map (%s, "
+                    "%d sources -> %d dense entries)" % (r["name"], g.nsrc,
+                                                          g.nvals))
         else:
             p = r["op"].pattern
             name = "level_operator %s (%s, %d blocks of %dx%d)" % (

@@ -8,9 +8,10 @@ uniform, SUPG shakib, --restriction), f64 on the CPU:
 * checkpoints cross both ways: the port's run_solver loads the JAX
   package's, and the JAX package's loads the port's, solving nothing;
 * --paraview writes one VTU file per Re;
-* every choice the port does not have yet raises NotImplementedError,
-  and every choice it has builds a solver (SV, bary, macrostar, Burman,
-  --mkl accepted and unused);
+* every choice the port does not have yet (item 12's --ndevices > 1 and
+  --rebalance) raises NotImplementedError, and every choice it has builds
+  a solver (SV, bary, macrostar, Burman, the direct and AMG modes,
+  --nref-vis, --mkl accepted and unused);
 * the recovery code, with a stubbed ``newton`` or ``solve`` (twins of
   tests/test_continuation_recovery.py, the three recovery tests of
   tests/test_resume_distill.py and tests/test_newton_dtol.py): a diverged
@@ -21,7 +22,9 @@ uniform, SUPG shakib, --restriction), f64 on the CPU:
 * ``python -m alfi_torch.examples.iters --device cpu`` prints both tables;
 * performance_info lists the solve loop's events (no wall-clock gate);
 * the committed log of the port's Re=10,000 sweep on the card has the
-  JAX package's counts at every Re.
+  JAX package's counts at every Re, and so have its step ladders (bfs2d
+  coarse12 to Re 1000, bfs3d coarse55 to Re 500) where a JAX log has
+  counts.
 """
 
 import os
@@ -205,6 +208,28 @@ def test_h100_sv_logs_have_the_jax_counts(port_log, ref_log, n):
     assert (0, 0) not in ref.values()
 
 
+@pytest.mark.parametrize("port_log,ref_log,n", [
+    ("iters_bfs2d_coarse12_nref1_re1000.log",
+     "torch_h100/iters_bfs2d_coarse12_nref1_re1000_jax_cpu.log", 16),
+    ("iters_bfs3d_p1fb_coarse55_re500.log",
+     "logs/bfs3d_p1fb_coarse55_re500.log", 8),
+])
+def test_h100_step_logs_have_the_jax_counts(port_log, ref_log, n):
+    """The port's backwards-facing-step ladders on the card (committed
+    logs: bfs2d on tests/fixtures/bfs2d_coarse12.msh to Re 1000, bfs3d
+    [P1+FB]^3 on coarse55 to Re 500) against the JAX package's logs:
+    equal counts at every Re both hold (the bfs3d log stops after Re 300;
+    the card's Re 350-500 have no JAX record)."""
+    from alfi_torch.examples.compare_iters import solve_records
+
+    port = solve_records(os.path.join(REPO, "results", "torch_h100",
+                                      port_log))
+    ref = solve_records(os.path.join(REPO, "results", ref_log))
+    common = sorted(set(port) & set(ref))
+    assert len(common) == n
+    assert [port[re] for re in common] == [ref[re] for re in common]
+
+
 def test_performance_info_lists_the_solve_events(sweeps, capsys):
     _, _, tsolver, _, _ = sweeps
     tdriver.performance_info(tsolver)
@@ -215,10 +240,6 @@ def test_performance_info_lists_the_solve_events(sweeps, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--solver-type", "alamg"],
-    ["--solver-type", "simple"],
-    ["--solver-type", "lsc"],
-    ["--nref-vis", "1"],
     ["--ndevices", "2"],
     ["--rebalance"],
 ], ids=lambda e: " ".join(e))
@@ -238,12 +259,17 @@ def test_unported_choices_raise(extra):
     ["--solver-type", "lu"],
     ["--solver-type", "allu"],
     ["--patch-composition", "multiplicative"],
+    ["--solver-type", "alamg"],
+    ["--solver-type", "simple"],
+    ["--solver-type", "lsc"],
+    ["--nref-vis", "1"],
 ], ids=lambda e: " ".join(e))
 def test_ported_choices_build(extra):
     """Each choice builds its solver on the CPU at baseN=2, with the JAX
     package's discretisation, hierarchy, patches, composition, pressure
-    null space (pinned by lu) and stabilisation; the direct modes build
-    no multigrid."""
+    null space (pinned by lu), stabilisation, gamma (0 for simple and
+    lsc), AMG coarse size and visualisation refinement; the direct and
+    AMG modes build no geometric multigrid."""
     args = _args(tdriver, extra)
     args.baseN = 2
     solver = tdriver.get_solver(args, TorchLDC(2), device="cpu")
@@ -254,8 +280,13 @@ def test_ported_choices_build(extra):
     assert solver.nsp == jsolver.nsp
     np.testing.assert_array_equal(solver.bcset.mask[1].numpy(),
                                   np.asarray(jsolver.bcset.mask[1]))
+    assert solver.gamma == jsolver.gamma
+    assert solver.nref_vis == jsolver.nref_vis == args.nref_vis
     assert hasattr(solver, "vmg") == hasattr(jsolver, "vmg") == (
         args.solver_type == "almg")
+    assert hasattr(solver, "vamg") == hasattr(jsolver, "vamg")
+    if hasattr(solver, "vamg"):
+        assert solver.vamg.n1 == jsolver.vamg.n1
     if args.solver_type != "almg":
         return
     assert ([ps.m for ps in solver.vmg.patchsets]
@@ -327,17 +358,35 @@ def test_macro_patches_need_bary():
         tdriver.get_solver(args, TorchLDC(4), device="cpu")
 
 
+#: the ROADMAP.md items whose kwargs are ported: they build
+PORTED_ITEMS = ("10h",)
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"nref_vis": 1}, "10h"),
     ({"rebalance_vertices": True}, "12"),
 ], ids=lambda e: str(e))
 def test_solver_kwargs_raise_off_their_defaults(kw, item):
+    """A kwarg of a ROADMAP item still to port raises naming it; one of a
+    ported item builds the JAX package's solver (visprolong: the refined
+    mesh and the prolonged field at 1e-12)."""
     from alfi_torch import ConstantPressureSolver
+    from alfi_tpu import ConstantPressureSolver as JaxSolver
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item %s$" % item):
-        ConstantPressureSolver(TorchLDC(2), nref=1, k=2, hierarchy="uniform",
-                               verbose=False, device="cpu", **kw)
+    args = dict(nref=1, k=2, hierarchy="uniform", verbose=False)
+    if item not in PORTED_ITEMS:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item %s$" % item):
+            ConstantPressureSolver(TorchLDC(2), device="cpu", **args, **kw)
+        return
+    s = ConstantPressureSolver(TorchLDC(2), device="cpu", **args, **kw)
+    j = JaxSolver(JaxLDC(2), **args, **kw)
+    u = np.random.default_rng(0).standard_normal((s.Z.V.ndof, 2))
+    (ut, mt, _), (uj, mj, _) = (s.visprolong(torch.as_tensor(u)),
+                                j.visprolong(u))
+    np.testing.assert_array_equal(mt.cells, mj.cells)
+    assert np.abs(ut.numpy() - np.asarray(uj)).max() <= 1e-12 * np.abs(
+        np.asarray(uj)).max()
 
 
 def test_solver_kwargs_take_the_reference_defaults():
