@@ -14,8 +14,9 @@ alfi_torch/stabilisation.py).
 
 Every per-cell quantity is one einsum over a leading cell axis (the JAX
 package vmaps a single-cell kernel instead), and assembly is an
-out-of-place ``index_add`` so that ``torch.func.jvp`` of the residual is
-the exact matrix-free Newton matvec.  The element tensors (viscous K,
+out-of-place scatter-add (:class:`~.scatter.ScatterAdd`, whose sums
+repeat on the card) so that ``torch.func.jvp`` of the residual is the
+exact matrix-free Newton matvec.  The element tensors (viscous K,
 grad-div G, advection N) are closed forms of that residual's Jacobian.
 """
 
@@ -26,6 +27,7 @@ import torch
 from ..config import real_dtype
 from .geometry import CellGeometry
 from .quadrature import simplex_quadrature
+from .scatter import ScatterAdd
 
 
 class Tabulation:
@@ -77,6 +79,8 @@ class NSForm:
                                     device=device)
         self.cd_q = torch.as_tensor(Q.cell_dofs, dtype=torch.int64,
                                     device=device)
+        self._scatter_v = ScatterAdd(self.cd_v, V.ndof)
+        self._scatter_q = ScatterAdd(self.cd_q, Q.ndof)
         wdet = self.tab_v.w[None, :] * self.geom.detj[:, None]
         #: (nc, nq) quadrature weights times |det J|
         self.wdet = wdet
@@ -169,12 +173,11 @@ class NSForm:
     # global assembly (out of place, so forward AD passes through)
     # ------------------------------------------------------------------
     def _sum_v(self, rv, like):
-        return torch.zeros_like(like).index_add(
-            0, self.cd_v.reshape(-1), rv.reshape(-1, self.dim))
+        return self._scatter_v(rv.reshape(-1, self.dim),
+                               torch.zeros_like(like))
 
     def _sum_q(self, rq, like):
-        return torch.zeros_like(like).index_add(
-            0, self.cd_q.reshape(-1), rq.reshape(-1))
+        return self._scatter_q(rq.reshape(-1), torch.zeros_like(like))
 
     def residual(self, z, params):
         """Assembled residual (Rv (ndofV, d), Rq (ndofQ,)).

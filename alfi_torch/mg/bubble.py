@@ -17,7 +17,7 @@ change of basis is exact dof-level algebra:
 and the facet-normal "mass solve" (bubble.py:26-39) collapses to
 v -> v + (1/0.625 - 1)(v.n)n per facet because facet bubbles vanish on
 every other facet.  apply_transpose() is the exact adjoint chain.  All of
-it is plain torch (gathers, index_add and small einsums), as the JAX
+it is plain torch (gathers, scatter-adds and small einsums), as the JAX
 package leaves it to XLA.
 """
 
@@ -28,6 +28,7 @@ import torch
 
 from ..config import real_dtype
 from ..fem import FunctionSpace, facet_bubble, lagrange
+from ..fem.scatter import ScatterAdd
 from .transfer import prolongation
 
 FLUX_FACTOR = 1.0 / 0.625 - 1.0
@@ -58,6 +59,8 @@ class BubbleTransfer:
                                    device=device)  # (nfc, 3)
         self.fvf = torch.as_tensor(meshf.facet_vertices, dtype=torch.int64,
                                    device=device)
+        self._thirds_c = ScatterAdd(self.fvc, self.nvc)
+        self._thirds_f = ScatterAdd(self.fvf, self.nvf)
         self.nc_ = torch.as_tensor(_facet_normals(meshc), dtype=real_dtype,
                                    device=device)
 
@@ -76,12 +79,12 @@ class BubbleTransfer:
         return fb + FLUX_FACTOR * vn[:, None] * self.nc_
 
     @staticmethod
-    def _add_thirds(v, fv, facet):
+    def _add_thirds(v, scatter, facet):
         """v[fv[F, j]] += facet[F] / 3 for the three vertices of every
-        facet F (the adjoint of the vertex mean)."""
+        facet F (the adjoint of the vertex mean); ``scatter`` sums over
+        the facets' vertex table fv."""
         third = (facet / 3.0)[:, None, :].expand(-1, 3, -1)
-        return v.index_add(0, fv.reshape(-1),
-                           third.reshape(-1, facet.shape[1]))
+        return scatter(third.reshape(-1, facet.shape[1]), v)
 
     # -- forward -------------------------------------------------------
     def apply(self, uc):
@@ -93,11 +96,11 @@ class BubbleTransfer:
     def apply_transpose(self, rf):
         # combine^T
         facet = rf[self.nvf:]
-        p1f = self._add_thirds(rf[: self.nvf], self.fvf, facet)
+        p1f = self._add_thirds(rf[: self.nvf], self._thirds_f, facet)
         # prolong^T
         p1c = self.p1.apply_transpose(p1f)
         fbc = self.fb.apply_transpose(facet)
         # scale^T (= scale) then split^T
         fbc = self._scale(fbc)
-        out_v = self._add_thirds(p1c, self.fvc, -fbc)
+        out_v = self._add_thirds(p1c, self._thirds_c, -fbc)
         return torch.cat([out_v, fbc], dim=0)

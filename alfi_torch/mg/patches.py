@@ -354,8 +354,8 @@ def _merge_scalar_dofs(sdofs, sizes, extra):
 # device half
 # ----------------------------------------------------------------------
 def _contract_index(patchset, dev):
-    """(cells (np, mc), flat (np*mc*nld*nld,)) on ``dev``: the padded cell
-    table and, per (patch, cell slot, i, j), the flat position of
+    """(cells (np, mc), flat (mc, np*nld*nld)) on ``dev``: the padded cell
+    table and, per (cell slot, patch, i, j), the flat position of
     A_p[l2p[i], l2p[j]] in the (np, m+1, m+1) accumulator.  Static per
     PatchSet, so built once per device and kept (at the 3D scale row the
     fine star table's index is 2 GB; rebuilding it per Newton step and
@@ -368,7 +368,8 @@ def _contract_index(patchset, dev):
         base = torch.arange(cells.shape[0],
                             device=dev)[:, None, None, None] * (m1 * m1)
         flat = base + l2p[:, :, :, None] * m1 + l2p[:, :, None, :]
-        cache[dev] = (cells, flat.reshape(-1))
+        cache[dev] = (cells, flat.transpose(0, 1).reshape(cells.shape[1],
+                                                          -1))
     return cache[dev]
 
 
@@ -376,7 +377,11 @@ def contract_patch_tensors(patchset, tensors):
     """(np, m, m) patch operators summed from per-cell element tensors
     (NO padding diagonal — see assemble_patch_matrices):
     A_p = sum_j P_j^T T_j P_j with P_j the 0/1 cell-local -> patch-local
-    placement, as one scatter-add (the JAX package's CPU formulation)."""
+    placement, as one scatter-add per cell slot.  Within a slot no two
+    live entries meet (only the dropped padding row and column collect
+    several), so the card adds without colliding atomics and each entry
+    sums its cells in slot order, as one sequential scatter-add (the JAX
+    package's CPU formulation) does."""
     m = patchset.m
     m1 = m + 1
     cells, flat = _contract_index(patchset, tensors.device)
@@ -384,20 +389,29 @@ def contract_patch_tensors(patchset, tensors):
     Tpad = torch.cat([tensors, tensors.new_zeros((1,) + tensors.shape[1:])])
     A = torch.zeros((npat * m1 * m1,), dtype=tensors.dtype,
                     device=tensors.device)
-    A = A.index_add(0, flat, Tpad[cells].reshape(-1))
+    for s in range(cells.shape[1]):
+        A.index_add_(0, flat[s], Tpad[cells[:, s]].reshape(-1))
     return A.reshape(npat, m1, m1)[:, :m, :m]
 
 
 def contract_patch_facet_tensors(ftabs, Jf):
     """(np, m, m) patch contributions from interior-facet Jacobians
     Jf (nif, 2nld, 2nld): the Burman coupling of the stabilised patch
-    operators, as one scatter-add per Newton-step set-up.  ``ftabs``: the
-    patch set's :class:`FacetPatchTables`."""
+    operators, one scatter-add per facet slot and block of sides
+    (side 0 rows and side 0 columns, then 0 and 1, 1 and 0, 1 and 1) at
+    each Newton-step set-up.  The two sides share the facet's dofs, so a
+    facet block can add twice to one entry; one side's rows against one
+    side's columns cannot, and the blocks in that order sum each entry
+    as one sequential scatter-add over the whole table does, with no
+    colliding atomics on the card.  ``ftabs``: the patch set's
+    :class:`FacetPatchTables`."""
     pfacets, flat = ftabs.index(Jf.device)
     m = ftabs.m
     m1 = m + 1
-    npat = pfacets.shape[0]
+    npat, nfs = pfacets.shape
+    nld = Jf.shape[1] // 2
     Jpad = torch.cat([Jf, Jf.new_zeros((1,) + Jf.shape[1:])])
+    Jpad = Jpad.reshape(-1, 2, nld, 2, nld)
     A = torch.zeros((npat * m1 * m1,), dtype=Jf.dtype, device=Jf.device)
     # the gathered facet blocks in patch chunks of at most 1 GB: the 3D
     # SV k=3 macrostar patches (ldc3d baseN=2 nref=1: 125 patches, m =
@@ -408,8 +422,13 @@ def contract_patch_facet_tensors(ftabs, Jf):
     chunk = max(1, (1 << 30) // (8 * per))
     for c0 in range(0, npat, chunk):
         c1 = min(npat, c0 + chunk)
-        A.index_add_(0, flat[c0 * per:c1 * per],
-                     Jpad[pfacets[c0:c1]].reshape(-1))
+        for s in range(nfs):
+            f = flat[c0:c1, s]
+            J = Jpad[pfacets[c0:c1, s]]
+            for a in range(2):
+                for b in range(2):
+                    A.index_add_(0, f[:, a, :, b, :].reshape(-1),
+                                 J[:, a, :, b, :].reshape(-1))
     return A.reshape(npat, m1, m1)[:, :m, :m]
 
 
@@ -433,7 +452,9 @@ class FacetPatchTables:
             base = torch.arange(pf.shape[0],
                                 device=dev)[:, None, None, None] * (m1 * m1)
             flat = base + l2p[:, :, :, None] * m1 + l2p[:, :, None, :]
-            self._index[dev] = (pf, flat.reshape(-1))
+            nld = flat.shape[-1] // 2
+            self._index[dev] = (pf, flat.reshape(pf.shape + (2, nld, 2,
+                                                             nld)))
         return self._index[dev]
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import real_dtype
+from ..fem.scatter import ScatterAdd
 
 
 def _dof_owner_cells(space):
@@ -75,6 +76,7 @@ class PointEvalTransfer:
         idx_np = source_space.cell_dofs[src_cells]
         self.idx = torch.as_tensor(idx_np, dtype=torch.int64,
                                    device=device)  # (ndof_t, nloc_s)
+        self._scatter = ScatterAdd(self.idx, source_space.ndof)
         # tabulate(pts) -> (npts, nloc): row i = all source basis values at
         # target dof i's own reference point
         self.w = torch.as_tensor(source_space.element.tabulate(ref_xi),
@@ -88,15 +90,11 @@ class PointEvalTransfer:
 
     def apply_transpose(self, r_tgt):
         """Adjoint (restriction): accumulate weighted rows."""
-        flat = self.idx.reshape(-1)
         if r_tgt.dim() == 1:
-            out = r_tgt.new_zeros((self.source.ndof,))
-            return out.index_add(0, flat,
-                                 (self.w * r_tgt[:, None]).reshape(-1))
+            return self._scatter((self.w * r_tgt[:, None]).reshape(-1))
         d = r_tgt.shape[1]
         vals = self.w[:, :, None] * r_tgt[:, None, :]
-        out = r_tgt.new_zeros((self.source.ndof, d))
-        return out.index_add(0, flat, vals.reshape(-1, d))
+        return self._scatter(vals.reshape(-1, d))
 
 
 def _candidates_fine_from_coarse(hierarchy, clevel, owner_fine_cells):

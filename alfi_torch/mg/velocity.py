@@ -40,6 +40,7 @@ from ..fem import (
     VectorFunctionSpace,
     dg_lagrange,
 )
+from ..fem.scatter import ScatterAdd
 from ..kernels import MergedLevelOperator
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import chebyshev, fgmres
@@ -72,6 +73,7 @@ class MGLevel:
         self.keep = self.mask_flat != 0
         #: (nc, nloc*d) flattened dof rows
         self.rows = torch.as_tensor(rows, dtype=torch.int64, device=device)
+        self._scatter = ScatterAdd(self.rows, V.ndof * V.value_size)
 
     def gather_cells(self, v0):
         """(nc, nld) cell-local values from the flat vector ``v0``."""
@@ -80,8 +82,7 @@ class MGLevel:
     def sum_cells(self, rloc):
         """Adjoint of gather_cells: accumulate (nc, nld) cell-local
         contributions into a flat (ndof*d,) vector."""
-        out = rloc.new_zeros((self.V.ndof * self.V.value_size,))
-        return out.index_add(0, self.rows.reshape(-1), rloc.reshape(-1))
+        return self._scatter(rloc.reshape(-1))
 
 
 class VelocityMG:

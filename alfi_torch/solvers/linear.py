@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..fem.scatter import ScatterAdd
 from .batched_lu import coarse_factor, coarse_solve
 
 
@@ -78,7 +79,8 @@ def vector_rows(space):
 
 
 def _scatter_dense(A, blocks):
-    """Add per-entity dense blocks into the (N, N) buffer A in place;
+    """Add per-entity dense blocks into the (N, N) buffer A in place, in
+    a fixed order (:class:`~alfi_torch.fem.scatter.ScatterAdd`);
     ``blocks``: (row table (ne, a) host int, col table (ne, b) host int,
     values (ne, a, b))."""
     N = A.shape[0]
@@ -86,8 +88,8 @@ def _scatter_dense(A, blocks):
     for rows, cols, T in blocks:
         rows = torch.as_tensor(rows, device=A.device)
         cols = torch.as_tensor(cols, device=A.device)
-        idx = (rows[:, :, None] * N + cols[:, None, :]).reshape(-1)
-        flat.index_add_(0, idx, T.reshape(-1))
+        idx = rows[:, :, None] * N + cols[:, None, :]
+        ScatterAdd(idx, N * N).add_(flat, T.reshape(-1))
 
 
 def _eliminate(A, m):

@@ -31,6 +31,7 @@ import torch
 
 from .config import real_dtype
 from .fem.facets import InteriorFacets
+from .fem.scatter import ScatterAdd
 
 
 class ShakibSUPG:
@@ -393,7 +394,8 @@ class BurmanStabilisation:
     with beta_F the facet average of sqrt(|u|^2 + 1e-10) on the LIVE
     state (so it enters the Newton Jacobian), h_F the facet measure in
     2D and its square root in 3D.  The facet sums are out-of-place
-    ``index_add`` so that ``torch.func.jvp`` passes through."""
+    scatter-adds (:class:`~alfi_torch.fem.scatter.ScatterAdd`) so that
+    ``torch.func.jvp`` passes through."""
 
     def __init__(self, form, weight=None):
         self.form = form
@@ -408,6 +410,8 @@ class BurmanStabilisation:
 
         #: (nif, nloc) scalar dofs of each side's cell
         self.dofs0, self.dofs1 = dev(cd[fc[:, 0]]), dev(cd[fc[:, 1]])
+        self._scatter0 = ScatterAdd(self.dofs0, form.V.ndof)
+        self._scatter1 = ScatterAdd(self.dofs1, form.V.ndof)
         self._fstat = None
 
     def facet_statics(self):
@@ -460,9 +464,9 @@ class BurmanStabilisation:
         d = self.form.dim
         r0, r1 = self.residual_pairs(u[self.dofs0], u[self.dofs1],
                                      self.facet_statics())
-        Rv = torch.zeros_like(u).index_add(
-            0, self.dofs0.reshape(-1), r0.reshape(-1, d)).index_add(
-            0, self.dofs1.reshape(-1), r1.reshape(-1, d))
+        Rv = self._scatter1(r1.reshape(-1, d),
+                            self._scatter0(r0.reshape(-1, d),
+                                           torch.zeros_like(u)))
         return Rv, torch.zeros_like(p)
 
     def facet_velocity_tensors(self, u, params):
