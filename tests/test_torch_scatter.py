@@ -2,19 +2,23 @@
 (``alfi_torch/fem/scatter.py``), f64 on the CPU.
 
 On the card ``index_add`` sums colliding contributions with float
-atomics, so its bits change from run to run; the port sums there in
-rounds that hold no destination twice.  On the CPU the default route is
-one ``index_add``; these tests force the rounds and hold them to it:
+atomics, so its bits change from run to run; the port sums there by a
+gather table and an ordered ``cumsum`` (out of place) or in rounds that
+hold no destination twice (in place).  On the CPU the default route is
+one ``index_add``; these tests force the card's routes and hold them to
+it:
 
-* the rounds of a table: each destination at most once per round, every
-  position exactly once, each destination's positions in index order;
-* the rounds give the bits of the CPU's ``index_add`` (out of place, in
-  place, 1-D and 2-D sources) and pass ``torch.func.jvp`` and ``vjp``;
-* whole solves by rounds give the default route's bits: ldc2d [P2]^2-P0
-  almg and lu, SV with Burman's stabilisation, and the 3D
-  flux-corrected bubble restriction;
-* on the card (marked ``cuda``): two calls give the same bits, and those
-  of the CPU's ``index_add``.
+* the table and the rounds of an index: every position exactly once,
+  each destination's positions in index order, no destination twice in
+  a round;
+* both routes give the bits of the CPU's ``index_add`` (1-D and 2-D
+  sources, onto zeros and onto old values), and the table passes
+  ``torch.func.jvp`` and ``vjp``;
+* whole solves by the card's routes give the default route's bits:
+  ldc2d [P2]^2-P0 almg and lu, SV with Burman's stabilisation, and the
+  3D flux-corrected bubble restriction;
+* on the card (marked ``cuda``): two calls give the same bits, and both
+  routes those of the CPU's ``index_add``.
 """
 
 import numpy as np
@@ -22,7 +26,7 @@ import pytest
 import torch
 
 from alfi_torch import ConstantPressureSolver, ScottVogeliusSolver
-from alfi_torch.fem.scatter import ScatterAdd, round_positions
+from alfi_torch.fem.scatter import ScatterAdd, gather_table, round_positions
 from alfi_torch.mg.bubble import BubbleTransfer
 from alfi_torch.problems import ThreeDimLidDrivenCavityProblem
 from alfi_torch.problems import TwoDimLidDrivenCavityProblem
@@ -44,7 +48,7 @@ def _tables():
 
 @pytest.mark.parametrize("name", ["random", "one destination", "distinct",
                                   "mesh cells"])
-def test_rounds_hold_each_destination_once_in_index_order(name):
+def test_table_and_rounds_keep_index_order(name):
     index = np.asarray(_tables()[name]).reshape(-1)
     rounds = round_positions(index)
     seen = np.concatenate(rounds)
@@ -57,10 +61,18 @@ def test_rounds_hold_each_destination_once_in_index_order(name):
         for p in pos:
             assert int((index[:p] == index[p]).sum()) == k
     assert len(rounds) == np.bincount(index).max()
+    # the table lists the same positions, per destination in index order
+    n = int(index.max()) + 1
+    table = gather_table(index, n)
+    assert table.shape == (1 + len(rounds), n)
+    assert np.array_equal(table[0], np.arange(n))
+    for j in range(n):
+        live = table[1:, j][table[1:, j] < n + index.size] - n
+        assert np.array_equal(live, np.flatnonzero(index == j))
 
 
 @pytest.mark.parametrize("width", [None, 2])
-def test_rounds_give_the_bits_of_index_add(width):
+def test_card_routes_give_the_bits_of_index_add(width):
     rng = np.random.default_rng(7)
     index = rng.integers(0, 40, size=(300, 4))
     shape = (index.size,) if width is None else (index.size, width)
@@ -69,16 +81,18 @@ def test_rounds_give_the_bits_of_index_add(width):
     sa = ScatterAdd(torch.as_tensor(index), 40)
     want = base.index_add(0, torch.as_tensor(index.reshape(-1)), src)
     assert len(sa.rounds()) > 1
-    assert torch.equal(sa.by_rounds(src, base), want)
+    assert torch.equal(sa.by_table(src, base), want)
     assert torch.equal(sa(src, base), want)
+    zero = torch.zeros_like(base)
+    assert torch.equal(sa.by_table(src, zero), zero.index_add(
+        0, torch.as_tensor(index.reshape(-1)), src))
     inplace = base.clone()
     for pos, dst in sa.rounds():
         inplace.index_add_(0, dst, src[pos])
     assert torch.equal(inplace, want)
-    assert torch.equal(sa.add_(base.clone(), src), want)
 
 
-def test_rounds_pass_jvp_and_vjp():
+def test_table_passes_jvp_and_vjp():
     rng = np.random.default_rng(11)
     index = torch.as_tensor(rng.integers(0, 25, size=200))
     x = torch.as_tensor(rng.standard_normal((200, 3)))
@@ -86,25 +100,26 @@ def test_rounds_pass_jvp_and_vjp():
     g = torch.as_tensor(rng.standard_normal((25, 3)))
     sa = ScatterAdd(index, 25)
 
-    def rounds(v):
-        return sa.by_rounds(v, v.new_zeros((25, 3)))
+    def table(v):
+        return sa.by_table(v, v.new_zeros((25, 3)))
 
     def plain(v):
         return v.new_zeros((25, 3)).index_add(0, index, v)
 
-    assert torch.equal(torch.func.jvp(rounds, (x,), (t,))[1],
+    assert torch.equal(torch.func.jvp(table, (x,), (t,))[1],
                        torch.func.jvp(plain, (x,), (t,))[1])
-    assert torch.equal(torch.func.vjp(rounds, x)[1](g)[0],
+    assert torch.equal(torch.func.vjp(table, x)[1](g)[0],
                        torch.func.vjp(plain, x)[1](g)[0])
 
 
 @pytest.fixture
-def by_rounds(monkeypatch):
-    """Every ScatterAdd sums in rounds, as it does on the card."""
+def card_routes(monkeypatch):
+    """Every ScatterAdd sums by its table and its rounds, as it does on
+    the card."""
     def call(self, src, out=None):
         if out is None:
             out = src.new_zeros((self.n,) + tuple(src.shape[1:]))
-        return self.by_rounds(src, out)
+        return self.by_table(src, out)
 
     def add_(self, out, src):
         for pos, dst in self.rounds():
@@ -128,7 +143,7 @@ SOLVES = {
 
 
 @pytest.mark.parametrize("name", list(SOLVES))
-def test_solve_by_rounds_gives_the_default_bits(name, by_rounds):
+def test_solve_by_card_routes_gives_the_default_bits(name, card_routes):
     cls, kw, res = SOLVES[name]
     kw = dict(dict(nref=1, k=2, hierarchy="uniform", gamma=1e4,
                    verbose=False), **kw)
@@ -143,21 +158,22 @@ def test_solve_by_rounds_gives_the_default_bits(name, by_rounds):
         return out
 
     want = solve()
-    by_rounds()
+    card_routes()
     got = solve()
     for (u, p, k, n), (u2, p2, k2, n2) in zip(got, want):
         assert (k, n) == (k2, n2)
         assert torch.equal(u, u2) and torch.equal(p, p2)
 
 
-def test_bubble_restriction_by_rounds_gives_the_default_bits(by_rounds):
+def test_bubble_restriction_by_card_routes_gives_the_default_bits(
+        card_routes):
     hierarchy = ThreeDimLidDrivenCavityProblem(1).mesh_hierarchy("uniform",
                                                                  1)
     tb = BubbleTransfer(hierarchy, 0, device="cpu")
     n = hierarchy[1].num_vertices + len(hierarchy[1].facet_vertices)
     r = torch.as_tensor(np.random.default_rng(5).standard_normal((n, 3)))
     want = tb.apply_transpose(r)
-    by_rounds()
+    card_routes()
     assert torch.equal(tb.apply_transpose(r), want)
 
 
@@ -172,6 +188,8 @@ def test_scatter_add_on_the_card_repeats_the_cpu_bits():
         0, torch.as_tensor(index.reshape(-1)), src)
     sa = ScatterAdd(torch.as_tensor(index, device="cuda"), 1000)
     a, b = sa(src.cuda()), sa(src.cuda())
+    c = sa.add_(torch.zeros((1000, 2), dtype=src.dtype, device="cuda"),
+                src.cuda())
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    assert torch.equal(a.cpu(), want)
+    assert torch.equal(a.cpu(), want) and torch.equal(c.cpu(), want)
