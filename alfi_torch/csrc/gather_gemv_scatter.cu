@@ -1,5 +1,5 @@
-// Fused, masked gather-GEMV-scatter for the AL multigrid cycle, in f64 on
-// Hopper.  For every output dof k in [0, n):
+// Fused, masked gather-GEMV-scatter for the AL multigrid cycle, on Hopper,
+// in f64 and, for the f32 smoother and cycle, in f32.  For every output dof k in [0, n):
 //
 //   acc[k] = sum over the CSR slots s of k, in list order, of
 //            sum_j A[b, i, j] * xin[gidx[b, j]]     (b = s / m, i = s % m)
@@ -145,6 +145,15 @@
 // cannot tell it from the K2 table of the same mesh, which has 6 times
 // the launches.
 //
+// f32 (the defect-correction smoother's and the f32 cycle's patch
+// applies): both kernels are templates on the scalar type T.  A, x, pass
+// and out are f32 and the lane partials are f32 (fmaf), as the TPU kernel
+// accumulated in its output dtype, f32; the order of the sums is the f64
+// kernels'.  The pair kernel loads each lane's column pair as one float2
+// (8 bytes) and its gather pair as one int2: a row still starts at an even
+// column for an even m, so A need only be 8-byte aligned.  The bytes of A
+// halve, and so does the bound (4,913 x 189 at 3D L2: 0.68 -> 0.34 GB).
+//
 // path = 0 picks by m; 1 and 2 force the pair or the strided kernel, for
 // measurements.
 
@@ -155,45 +164,66 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxM = 64;
 
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+// two adjacent columns of a row, loaded as one vector
+template <typename T>
+struct Pair;
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+
 // The one write of dof k: out = keep ? p : pass.
-__device__ __forceinline__ void store(double* __restrict__ out,
-                                      const double* __restrict__ pass,
-                                      long long k, double p, bool keep) {
+template <typename T>
+__device__ __forceinline__ void store(T* __restrict__ out,
+                                      const T* __restrict__ pass,
+                                      long long k, T p, bool keep) {
   out[k] = keep ? p : pass[k];
 }
 
 // One lane's column pair j, j+1 of the A row of slot s and of its
 // block's gather row.  Loaded first and added later, so that two slots'
 // loads are in flight together.
+template <typename T>
 struct ColPair {
-  double2 a;
+  typename Pair<T>::type a;
   int2 g;
 
-  __device__ __forceinline__ ColPair(const double* __restrict__ A,
+  __device__ __forceinline__ ColPair(const T* __restrict__ A,
                                      const int* __restrict__ gidx, int s,
                                      int m, int j)
-      : a(*reinterpret_cast<const double2*>(A + (long long)s * m + j)),
+      : a(*reinterpret_cast<const typename Pair<T>::type*>(
+            A + (long long)s * m + j)),
         g(*reinterpret_cast<const int2*>(gidx + (long long)(s / m) * m +
                                          j)) {}
 
   // p + a . x[g] in column order; a pad (-1) reads 0
-  __device__ __forceinline__ double add(const double* __restrict__ x,
-                                        double p) const {
-    p = fma(a.x, g.x >= 0 ? x[g.x] : 0.0, p);
-    return fma(a.y, g.y >= 0 ? x[g.y] : 0.0, p);
+  __device__ __forceinline__ T add(const T* __restrict__ x, T p) const {
+    p = fma_t(a.x, g.x >= 0 ? x[g.x] : T(0), p);
+    return fma_t(a.y, g.y >= 0 ? x[g.y] : T(0), p);
   }
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gather_gemv_scatter_kernel(const double* __restrict__ A,
-                           const double* __restrict__ x,
+gather_gemv_scatter_kernel(const T* __restrict__ A,
+                           const T* __restrict__ x,
                            const int* __restrict__ gidx,
                            const int* __restrict__ offsets,
                            const int* __restrict__ slots,
                            const unsigned char* __restrict__ out_mask,
-                           const double* __restrict__ pass,
-                           double* __restrict__ out, int n, int m,
-                           int glog) {
+                           const T* __restrict__ pass,
+                           T* __restrict__ out, int n, int m, int glog) {
   const int G = 1 << glog;
   const long long k =
       ((long long)blockIdx.x * kThreads + threadIdx.x) >> glog;
@@ -204,15 +234,15 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
   const bool keep = !own || out_mask == nullptr || out_mask[k] != 0;
   int q = own ? offsets[k] : 0;
   const int qend = own ? offsets[k + 1] : 0;
-  double p = 0.0;
+  T p = T(0);
   if (j < m) {
     // two slots per step, added in list order
     for (; q + 1 < qend; q += 2) {
-      const ColPair c0(A, gidx, slots[q], m, j);
-      const ColPair c1(A, gidx, slots[q + 1], m, j);
+      const ColPair<T> c0(A, gidx, slots[q], m, j);
+      const ColPair<T> c1(A, gidx, slots[q + 1], m, j);
       p = c1.add(x, c0.add(x, p));
     }
-    if (q < qend) p = ColPair(A, gidx, slots[q], m, j).add(x, p);
+    if (q < qend) p = ColPair<T>(A, gidx, slots[q], m, j).add(x, p);
   }
   // every lane of the warp reaches this point (no early return), so the
   // full-warp shuffles are safe; offsets < G stay inside the group
@@ -222,53 +252,54 @@ gather_gemv_scatter_kernel(const double* __restrict__ A,
 
 // The strided kernel: any m >= 1 (see the header note).  Lane t of a
 // group of G = 2^glog lanes takes columns t, t + G, ... below the block's
-// live extent of each row of its dof, as 8-byte loads, kSteps steps to a
+// live extent of each row of its dof, as scalar loads, kSteps steps to a
 // batch.
 constexpr int kSteps = 4;
 
 // One lane's batch: its kSteps columns j0, j0 + G, ... (those below the
 // live extent nc) of the A row of slot s and of its block's gather row.
+template <typename T>
 struct Batch {
-  double a[kSteps];
+  T a[kSteps];
   int g[kSteps];
 
-  __device__ __forceinline__ void load(const double* __restrict__ A,
+  __device__ __forceinline__ void load(const T* __restrict__ A,
                                        const int* __restrict__ gidx, int s,
                                        int m, int nc, int j0, int G) {
-    const double* __restrict__ row = A + (long long)s * m;
+    const T* __restrict__ row = A + (long long)s * m;
     const int* __restrict__ grow = gidx + (long long)(s / m) * m;
 #pragma unroll
     for (int u = 0; u < kSteps; ++u) {
       const int j = j0 + u * G;
       const bool in = j < nc;
-      a[u] = in ? row[j] : 0.0;
+      a[u] = in ? row[j] : T(0);
       g[u] = in ? grow[j] : -1;
     }
   }
 
   // p + a . x[g] in ascending columns; a pad (-1) reads 0, and a step
   // past the live extent adds 0 * 0
-  __device__ __forceinline__ double add(const double* __restrict__ x,
-                                        double p) const {
-    double xv[kSteps];
+  __device__ __forceinline__ T add(const T* __restrict__ x, T p) const {
+    T xv[kSteps];
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : 0.0;
+    for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : T(0);
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) p = fma(a[u], xv[u], p);
+    for (int u = 0; u < kSteps; ++u) p = fma_t(a[u], xv[u], p);
     return p;
   }
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
-                                   const double* __restrict__ x,
+gather_gemv_scatter_strided_kernel(const T* __restrict__ A,
+                                   const T* __restrict__ x,
                                    const int* __restrict__ gidx,
                                    const int* __restrict__ offsets,
                                    const int* __restrict__ slots,
                                    const int* __restrict__ slot_cols,
                                    const unsigned char* __restrict__ out_mask,
-                                   const double* __restrict__ pass,
-                                   double* __restrict__ out, int n, int m,
+                                   const T* __restrict__ pass,
+                                   T* __restrict__ out, int n, int m,
                                    int glog) {
   const int G = 1 << glog;
   const long long k =
@@ -278,7 +309,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
   const bool keep = !own || out_mask == nullptr || out_mask[k] != 0;
   int q = own ? offsets[k] : 0;
   const int qend = own ? offsets[k + 1] : 0;
-  double p = 0.0;
+  T p = T(0);
   if (q < qend) {
     // this slot and, loaded ahead, the next
     int s = slots[q], nc = slot_cols[q], sn = 0, ncn = 0;
@@ -287,7 +318,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
       ncn = slot_cols[q + 1];
     }
     int c0 = 0;
-    Batch cur;
+    Batch<T> cur;
     cur.load(A, gidx, s, m, nc, t, G);
     // the batches of the dof's rows as one stream, in list order, columns
     // ascending: the next batch is loaded before this one's x is gathered
@@ -303,7 +334,7 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
           ncn = slot_cols[q + 1];
         }
       }
-      Batch nxt;
+      Batch<T> nxt;
       nxt.load(A, gidx, s, m, nc, c0 + t, G);
       p = cur.add(x, p);
       cur = nxt;
@@ -315,32 +346,18 @@ gather_gemv_scatter_strided_kernel(const double* __restrict__ A,
   if (own && t == 0) store(out, pass, k, p, keep);
 }
 
-}  // namespace
-
-extern "C" {
-
-// out (n,) = the fused, masked gather-GEMV-scatter above, launched on
-// `stream` of CUDA device `device`.  Any m >= 1; path 0 picks the kernel
-// by m, 1 forces the pair kernel (m even in [2, 64], A 16-byte and gidx
-// 8-byte aligned), 2 the strided one.  out_mask and pass are both null or
-// both set.  The strided
-// kernel's tables (alfi_torch/kernels.py builds them): slot_cols, the
-// live extent of each slot's block, and glog, log2 of its lanes per dof
-// (0..5).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments it does not take).
-int alfi_gather_gemv_scatter(const double* A, const double* x,
-                             const int* gidx, const int* offsets,
-                             const int* slots,
-                             const unsigned char* out_mask,
-                             const double* pass, double* out, int n, int m,
-                             int path, int device, void* stream,
-                             const int* slot_cols, int glog) {
+template <typename T>
+int launch(const T* A, const T* x, const int* gidx, const int* offsets,
+           const int* slots, const unsigned char* out_mask, const T* pass,
+           T* out, int n, int m, int path, int device, void* stream,
+           const int* slot_cols, int glog) {
   if (n < 0 || m < 1 || path < 0 || path > 2 || glog < 0 || glog > 5 ||
       (out_mask == nullptr) != (pass == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool pair_ok = m <= kMaxM && m % 2 == 0 &&
-                       reinterpret_cast<unsigned long long>(A) % 16 == 0 &&
-                       reinterpret_cast<unsigned long long>(gidx) % 8 == 0;
+  const bool pair_ok =
+      m <= kMaxM && m % 2 == 0 &&
+      reinterpret_cast<unsigned long long>(A) % (2 * sizeof(T)) == 0 &&
+      reinterpret_cast<unsigned long long>(gidx) % 8 == 0;
   if (path == 1 && !pair_ok) return (int)cudaErrorInvalidValue;
   const bool pair = path == 1 || (path == 0 && pair_ok);
   if (n == 0) return (int)cudaSuccess;
@@ -355,16 +372,54 @@ int alfi_gather_gemv_scatter(const double* A, const double* x,
   const long long threads = (long long)n << glog;
   const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
   if (pair)
-    gather_gemv_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
+    gather_gemv_scatter_kernel<T>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            A, x, gidx, offsets, slots, out_mask, pass, out, n, m, glog);
   else
-    gather_gemv_scatter_strided_kernel<<<grid, kThreads, 0,
-                                         (cudaStream_t)stream>>>(
-        A, x, gidx, offsets, slots, slot_cols, out_mask, pass, out, n, m,
-        glog);
+    gather_gemv_scatter_strided_kernel<T>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            A, x, gidx, offsets, slots, slot_cols, out_mask, pass, out, n,
+            m, glog);
   const int err = (int)cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// out (n,) = the fused, masked gather-GEMV-scatter above, in f64,
+// launched on `stream` of CUDA device `device`.  Any m >= 1; path 0 picks
+// the kernel by m, 1 forces the pair kernel (m even in [2, 64], A 16-byte
+// and gidx 8-byte aligned), 2 the strided one.  out_mask and pass are
+// both null or both set.  The strided kernel's tables
+// (alfi_torch/kernels.py builds them): slot_cols, the live extent of each
+// slot's block, and glog, log2 of its lanes per dof (0..5).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments it does not take).
+int alfi_gather_gemv_scatter(const double* A, const double* x,
+                             const int* gidx, const int* offsets,
+                             const int* slots,
+                             const unsigned char* out_mask,
+                             const double* pass, double* out, int n, int m,
+                             int path, int device, void* stream,
+                             const int* slot_cols, int glog) {
+  return launch<double>(A, x, gidx, offsets, slots, out_mask, pass, out, n,
+                        m, path, device, stream, slot_cols, glog);
+}
+
+// The same in f32 (A, x, pass, out f32; the pair kernel needs A 8-byte
+// aligned).
+int alfi_gather_gemv_scatter_f32(const float* A, const float* x,
+                                 const int* gidx, const int* offsets,
+                                 const int* slots,
+                                 const unsigned char* out_mask,
+                                 const float* pass, float* out, int n, int m,
+                                 int path, int device, void* stream,
+                                 const int* slot_cols, int glog) {
+  return launch<float>(A, x, gidx, offsets, slots, out_mask, pass, out, n,
+                       m, path, device, stream, slot_cols, glog);
 }
 
 }  // extern "C"

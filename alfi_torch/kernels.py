@@ -15,6 +15,10 @@ table, and 0/1 masks fixed per table (no out_mask: out is the sum).
   table ``MGLevel.rows``.  The cycle no longer runs it (see below); it
   stays as the yardstick the merged operator is measured against.
 
+The fused kernel runs in f64 or, for the f32 smoother and cycle
+(``alfi_torch/config.py``), in f32: A, x, passthrough and out of one
+dtype.
+
 :class:`GatherGemvScatter` binds one table and its masks to the fused
 kernel ``csrc/gather_gemv_scatter.cu`` (one launch per apply; its header
 note says what bounds it on the card, what the design does about it and
@@ -27,7 +31,10 @@ binds a level's host pattern (``mg/level_operator.py``) to
 distinct couplings once per Newton step and whose KM applies it.  KA sums
 by a host assembly map alone (:class:`MapAssembly`, a dest-major CSR of
 source positions), so the AMG baseline's level-1 Galerkin product
-(``mg/amg.py``) runs it too, over a map of its own.
+(``mg/amg.py``) runs it too, over a map of its own.  KM takes f64 or f32
+values and f64 or f32 vectors (the precision modes); in the modes that
+store the level operator gamma-split, :class:`GradDivTerm` (kernel KB of
+the same source) adds the grad-div term from its f64 factors.
 
 Each source is built with nvcc for ``sm_90a`` at first use, into the
 git-ignored ``_build/`` directory under a name keyed by the source's hash,
@@ -109,9 +116,15 @@ def _bind(source, lib):
         lib.alfi_gather_gemv_scatter.restype = ci
         lib.alfi_gather_gemv_scatter.argtypes = ([vp] * 8 + [ci] * 4
                                                  + [vp, vp, ci])
+        lib.alfi_gather_gemv_scatter_f32.restype = ci
+        lib.alfi_gather_gemv_scatter_f32.argtypes = (
+            lib.alfi_gather_gemv_scatter.argtypes)
     else:
         lib.alfi_level_apply.restype = ci
-        lib.alfi_level_apply.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.alfi_level_apply.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci]
+        lib.alfi_graddiv_apply.restype = ci
+        lib.alfi_graddiv_apply.argtypes = ([vp] * 8 + [ci] * 4
+                                           + [ctypes.c_double, ci, ci, vp])
         lib.alfi_level_assemble.restype = ci
         lib.alfi_level_assemble.argtypes = ([vp, vp, ci, vp, vp, vp,
                                              ctypes.c_longlong, ci, vp])
@@ -204,15 +217,20 @@ def _mask_keep(mask, n, name):
     return mask == 1.0
 
 
-def _check_tensor(t, name, shape, device):
-    """Raise unless ``t`` is a contiguous f64 tensor of ``shape`` on
-    ``device``."""
+#: the floating dtypes the kernels take
+FLOATS = (torch.float64, torch.float32)
+
+
+def _check_tensor(t, name, shape, device, dtypes=(torch.float64,)):
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` on
+    ``device`` with a dtype in ``dtypes``."""
     if t.device != device:
         raise ValueError("%s lies on %s, the table on %s"
                          % (name, t.device, device))
-    if t.dtype != torch.float64 or t.shape != shape:
-        raise ValueError("%s must be f64 of shape %s, got %s %s"
-                         % (name, shape, t.dtype, tuple(t.shape)))
+    if t.dtype not in dtypes or t.shape != shape:
+        raise ValueError("%s must be %s of shape %s, got %s %s"
+                         % (name, " or ".join(str(d) for d in dtypes), shape,
+                            t.dtype, tuple(t.shape)))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
 
@@ -225,14 +243,17 @@ class GatherGemvScatter:
     ``use`` tags the launches ("K1" patch apply, "K2" level matvec by
     blocks); ``in_mask`` / ``out_mask``: optional 0/1 masks of n values,
     fixed here.  With an out_mask every call passes ``passthrough`` (n,).
-    The device is the table's: A, x and passthrough must lie on it.  On
-    a CUDA device the kernel takes any m >= 1 (``path`` 0: the pair
-    kernel for an even m <= PAIR_MAX_M and a 16-byte-aligned A, else the
-    strided one; 1 or 2 force the pair or the strided kernel, for
+    The device is the table's: A, x and passthrough must lie on it, all
+    f64 or all f32 (out has their dtype).  On a CUDA device the kernel
+    takes any m >= 1 (``path`` 0: the pair kernel for an even m <=
+    PAIR_MAX_M and an A aligned to two of its entries, else the strided
+    one; 1 or 2 force the pair or the strided kernel, for
     measurements)."""
 
     #: kernel launches per use since the last reset_launch_counts()
     launches = {"K1": 0, "K2": 0}
+    #: of those, the f32 launches
+    f32_launches = {"K1": 0, "K2": 0}
     #: every live table, so that reset_launch_counts() reaches its count
     _tables_alive = weakref.WeakSet()
 
@@ -287,35 +308,38 @@ class GatherGemvScatter:
         #: kernel choice on a CUDA device (see the class docstring)
         self.path = 0
         if self.device.type == "cuda":
-            self._launch = load_library().alfi_gather_gemv_scatter
+            lib = load_library()
+            self._launch = {torch.float64: lib.alfi_gather_gemv_scatter,
+                            torch.float32: lib.alfi_gather_gemv_scatter_f32}
             self._tables = (self.gidx.data_ptr(), self.offsets.data_ptr(),
                             self.slots.data_ptr(),
                             None if self.out_keep is None
                             else self.out_keep.data_ptr(),
                             self.slot_cols.data_ptr())
 
-    def _check(self, t, name, shape):
-        _check_tensor(t, name, shape, self.device)
+    def _check(self, t, name, shape, dtype=None):
+        _check_tensor(t, name, shape, self.device,
+                      FLOATS if dtype is None else (dtype,))
 
     def __call__(self, A, x, passthrough=None):
         if (passthrough is None) != (self.out_keep is None):
             raise ValueError("passthrough is required exactly when the "
                              "table has an out_mask")
         self._check(A, "A", self.ashape)
-        self._check(x, "x", (self.n,))
+        self._check(x, "x", (self.n,), A.dtype)
         if passthrough is not None:
-            self._check(passthrough, "passthrough", (self.n,))
+            self._check(passthrough, "passthrough", (self.n,), A.dtype)
         if self._launch is None:
             return self.plain(A, x, passthrough)
         a_ptr = A.data_ptr()
-        if self.path == 1 and (a_ptr % 16 or self.m % 2
+        if self.path == 1 and (a_ptr % (2 * A.element_size()) or self.m % 2
                                or self.m > PAIR_MAX_M):
-            raise ValueError("the pair kernel takes an even m <= %d and a "
-                             "16-byte-aligned A, got m=%d"
+            raise ValueError("the pair kernel takes an even m <= %d and an "
+                             "A aligned to two entries, got m=%d"
                              % (PAIR_MAX_M, self.m))
-        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
+        out = torch.empty((self.n,), dtype=A.dtype, device=self.device)
         gidx, offsets, slots, out_mask, slot_cols = self._tables
-        err = self._launch(
+        err = self._launch[A.dtype](
             a_ptr, x.data_ptr(), gidx, offsets, slots, out_mask,
             None if passthrough is None else passthrough.data_ptr(),
             out.data_ptr(), self.n, self.m, self.path, self.device.index,
@@ -325,32 +349,35 @@ class GatherGemvScatter:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
         GatherGemvScatter.launches[self.use] += 1
+        if A.dtype == torch.float32:
+            GatherGemvScatter.f32_launches[self.use] += 1
         self.launched += 1
         return out
 
     def kernel_path(self, path=None):
         """1 (pair) or 2 (strided): the kernel that ``path`` (default:
-        this table's) launches on a 16-byte-aligned A."""
+        this table's) launches on an A aligned to two entries."""
         path = self.path if path is None else path
         if path:
             return path
         return 1 if self.m % 2 == 0 and self.m <= PAIR_MAX_M else 2
 
-    def a_bytes(self, path=None):
-        """(loaded, live): the bytes of A that the kernel of ``path``
-        loads in one call, and the bytes of the entries the function
-        needs (row feeds a live output dof, column gathers a live dof).
-        The pair kernel loads every column of a live row; the strided
-        kernel the columns below the block's live extent."""
+    def a_bytes(self, path=None, itemsize=8):
+        """(loaded, live): the bytes of A (``itemsize`` bytes an entry)
+        that the kernel of ``path`` loads in one call, and the bytes of the
+        entries the function needs (row feeds a live output dof, column
+        gathers a live dof).  The pair kernel loads every column of a live
+        row; the strided kernel the columns below the block's live
+        extent."""
         block = self.slots.long() // self.m  # of every live row
         live = int((self.gidx >= 0).sum(1)[block].sum())
         if self.kernel_path(path) == 1:
-            return 8 * self.m * int(block.numel()), 8 * live
-        return 8 * int(self.slot_cols.sum()), 8 * live
+            return itemsize * self.m * int(block.numel()), itemsize * live
+        return itemsize * int(self.slot_cols.sum()), itemsize * live
 
     def plain(self, A, x, passthrough=None):
         """The same operation in plain PyTorch (torch.where masks, an
-        einsum and index_add), on any device."""
+        einsum and index_add), on any device, in A's dtype."""
         n = self.n
         if self.in_keep is not None:
             x = torch.where(self.in_keep, x, 0.0)
@@ -468,6 +495,11 @@ def merged_lanes_log2(row_lengths, d):
                                            1.0))), 0, 5))
 
 
+_MODE = {(torch.float64, torch.float32): "f64/f32",
+         (torch.float32, torch.float64): "f32/f64",
+         (torch.float32, torch.float32): "f32/f32"}
+
+
 class MergedLevelOperator:
     """The merged level operator of one level (``mg/level_operator.py``
     builds its host ``pattern``, a :class:`LevelPattern`): per Newton
@@ -484,6 +516,8 @@ class MergedLevelOperator:
 
     #: kernel launches per kernel since the last reset_launch_counts()
     launches = {"KM": 0, "KA": 0}
+    #: of KM's, those in a mixed mode, by "values/vectors" dtype
+    mode_launches = {"f64/f32": 0, "f32/f64": 0, "f32/f32": 0}
     _tables_alive = weakref.WeakSet()
 
     def __init__(self, pattern, *, device):
@@ -544,22 +578,29 @@ class MergedLevelOperator:
         return self.assembly(cells, facets).reshape(self.vshape)
 
     def __call__(self, vals, x):
-        """out (n,) = keep * A x + (1 - keep) * x, A the merged values."""
-        self._check(vals, "vals", self.vshape)
-        self._check(x, "x", (self.n,))
+        """out (n,) = keep * A x + (1 - keep) * x, A the merged values;
+        ``vals`` and ``x`` each f64 or f32, the arithmetic in the promoted
+        dtype, out in x's."""
+        _check_tensor(vals, "vals", self.vshape, self.device, FLOATS)
+        _check_tensor(x, "x", (self.n,), self.device, FLOATS)
         if self._lib is None:
             return self.plain(vals, x)
-        out = torch.empty((self.n,), dtype=torch.float64, device=self.device)
+        out = torch.empty((self.n,), dtype=x.dtype, device=self.device)
         idx = self.device.index
         err = self._lib.alfi_level_apply(
             vals.data_ptr(), x.data_ptr(), self.rowptr.data_ptr(),
             self.bcol.data_ptr(), self.keep.data_ptr(), out.data_ptr(),
             self.nodes, self.d, self.lanes_log2, idx,
-            torch._C._cuda_getCurrentRawStream(idx))
+            torch._C._cuda_getCurrentRawStream(idx),
+            int(vals.dtype == torch.float32)
+            + 2 * int(x.dtype == torch.float32))
         if err != 0:
             raise RuntimeError("level_operator KM: CUDA error %d after "
                                "launch" % err)
         MergedLevelOperator.launches["KM"] += 1
+        if vals.dtype != torch.float64 or x.dtype != torch.float64:
+            mode = _MODE[vals.dtype, x.dtype]
+            MergedLevelOperator.mode_launches[mode] += 1
         self._km_launched += 1
         return out
 
@@ -577,29 +618,139 @@ class MergedLevelOperator:
 
     def plain(self, vals, x):
         """KM in plain PyTorch: x gathered by block column, an einsum and
-        an index_add_ by block row, then the passthrough."""
-        xb = x.reshape(self.nodes, self.d)[self.bcol.long()]
-        y = torch.einsum("bij,bj->bi", vals, xb)
-        acc = x.new_zeros((self.nodes, self.d)).index_add_(0, self.brow, y)
-        return torch.where(self.keep, acc.reshape(-1), x)
+        an index_add_ by block row, then the passthrough; in the promoted
+        dtype of vals and x, out in x's."""
+        ct = torch.promote_types(vals.dtype, x.dtype)
+        xc = x.to(ct)
+        xb = xc.reshape(self.nodes, self.d)[self.bcol.long()]
+        y = torch.einsum("bij,bj->bi", vals.to(ct), xb)
+        acc = xc.new_zeros((self.nodes, self.d)).index_add_(0, self.brow, y)
+        return torch.where(self.keep, acc.reshape(-1), xc).to(x.dtype)
 
-    def value_bytes(self):
-        """Bytes of one apply's merged operator: the values and their
-        block columns."""
-        return self.pattern.nnzb * (8 * self.d * self.d + 4)
+    def value_bytes(self, itemsize=8):
+        """Bytes of one apply's merged operator: the values (``itemsize``
+        bytes each) and their block columns."""
+        return self.pattern.nnzb * (itemsize * self.d * self.d + 4)
+
+
+class GradDivTerm:
+    """out = y + keep * gamma * sum_c R_c^T B_c (B_c^T R_c (keep * x)):
+    the grad-div term of a level operator stored gamma-split, from the
+    static per-cell factors B (nc, nld, q) f64 (``NSForm.graddiv_factors``,
+    G_c = B_c B_c^T), in f64 arithmetic on x, y and out of one dtype (f64
+    or f32): kernel KB of ``csrc/level_operator.cu``, two launches, no
+    atomics.
+
+    ``rows`` (nc, nld) host table of each cell's flat dofs; ``keep``: an
+    optional 0/1 mask of n values (the level's BC mask, in and out), None
+    for the raw operator (the Schoeberl transfer's).  Tensors on the CPU
+    run the plain version; on a CUDA device the kernel launches or
+    raises."""
+
+    #: launches since the last reset_launch_counts()
+    launches = {"KB": 0}
+    _tables_alive = weakref.WeakSet()
+
+    def __init__(self, rows, n, *, keep=None, device):
+        rows = np.asarray(rows, dtype=np.int64)
+        self.nc, self.nld = rows.shape
+        self.n = int(n)
+        if self.n >= 2 ** 31 or rows.size >= 2 ** 31:
+            raise ValueError("table too large for int32 indices")
+        live = (rows >= 0) & (rows < self.n)
+        if keep is not None:
+            kept = _mask_keep(keep, self.n, "keep")
+            live &= kept[np.where(live, rows, 0)]
+        gidx = np.where(live, rows, -1)
+        offsets, slots = csr_from_table(gidx, self.n)
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        #: the gather table (masked entries -1) and the CSR lists
+        self.gidx = dev(gidx.astype(np.int32))
+        self.device = self.gidx.device
+        self.offsets, self.slots = dev(offsets), dev(slots)
+        #: the plain version's table: masked entries point at n (a zero)
+        self.pidx = dev(np.where(live, rows, self.n))
+        self._scatter = None
+        self.launched = 0
+        GradDivTerm._tables_alive.add(self)
+        self._lib = None
+        if self.device.type == "cuda":
+            self._lib = load_library(LEVEL_SOURCE)
+
+    def _check(self, B, x, y):
+        if B.dim() != 3 or B.shape[:2] != (self.nc, self.nld):
+            raise ValueError("B must be (%d, %d, q), got %s"
+                             % (self.nc, self.nld, tuple(B.shape)))
+        _check_tensor(B, "B", B.shape, self.device)
+        _check_tensor(x, "x", (self.n,), self.device, FLOATS)
+        if y is not None:
+            _check_tensor(y, "y", (self.n,), self.device, (x.dtype,))
+
+    def __call__(self, B, gamma, x, y=None, out=None):
+        """The term added to ``y`` (None: 0) in ``out`` (None: a new
+        tensor; ``out`` may be ``y``), in x's dtype."""
+        self._check(B, x, y)
+        if self._lib is None:
+            return self.plain(B, gamma, x, y)
+        q = B.shape[2]
+        if out is None:
+            out = torch.empty((self.n,), dtype=x.dtype, device=self.device)
+        elif out is not y:
+            _check_tensor(out, "out", (self.n,), self.device, (x.dtype,))
+        dq = torch.empty((self.nc * q,), dtype=torch.float64,
+                         device=self.device)
+        idx = self.device.index
+        err = self._lib.alfi_graddiv_apply(
+            B.data_ptr(), x.data_ptr(), self.gidx.data_ptr(),
+            self.offsets.data_ptr(), self.slots.data_ptr(),
+            None if y is None else y.data_ptr(), out.data_ptr(),
+            dq.data_ptr(), self.nc, self.nld, q, self.n, float(gamma),
+            int(x.dtype == torch.float32), idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+        if err != 0:
+            raise RuntimeError("level_operator KB: CUDA error %d after "
+                               "launch" % err)
+        GradDivTerm.launches["KB"] += 1
+        self.launched += 1
+        return out
+
+    def plain(self, B, gamma, x, y=None):
+        """KB in plain PyTorch, f64: the einsum pair and the ordered
+        scatter-add (``fem/scatter.py:ScatterAdd``); out in x's dtype."""
+        from .fem.scatter import ScatterAdd
+
+        if self._scatter is None:
+            self._scatter = ScatterAdd(self.pidx, self.n + 1)
+        x64 = x.to(torch.float64)
+        vloc = torch.cat([x64, x64.new_zeros(1)])[self.pidx]
+        dq = gamma * torch.einsum("cip,ci->cp", B, vloc)
+        acc = self._scatter(torch.einsum("cip,cp->ci", B, dq).reshape(-1))
+        acc = acc[:self.n]
+        if y is not None:
+            acc = y.to(torch.float64) + acc
+        return acc.to(x.dtype)
 
 
 def reset_launch_counts():
     """Zero the per-use counts and every live table's own count."""
     for key in GatherGemvScatter.launches:
         GatherGemvScatter.launches[key] = 0
+        GatherGemvScatter.f32_launches[key] = 0
     for table in GatherGemvScatter._tables_alive:
         table.launched = 0
     for key in MergedLevelOperator.launches:
         MergedLevelOperator.launches[key] = 0
+    for key in MergedLevelOperator.mode_launches:
+        MergedLevelOperator.mode_launches[key] = 0
     for table in MergedLevelOperator._tables_alive:
         table._km_launched = 0
     for key in MapAssembly.launches:
         MapAssembly.launches[key] = 0
     for table in MapAssembly._tables_alive:
+        table.launched = 0
+    GradDivTerm.launches["KB"] = 0
+    for table in GradDivTerm._tables_alive:
         table.launched = 0

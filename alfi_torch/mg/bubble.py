@@ -75,8 +75,9 @@ class BubbleTransfer:
         return torch.cat([p1f, facet], dim=0)
 
     def _scale(self, fb):
-        vn = torch.einsum("fd,fd->f", fb, self.nc_)
-        return fb + FLUX_FACTOR * vn[:, None] * self.nc_
+        nc_ = self.nc_.to(fb.dtype)
+        vn = torch.einsum("fd,fd->f", fb, nc_)
+        return fb + FLUX_FACTOR * vn[:, None] * nc_
 
     @staticmethod
     def _add_thirds(v, scatter, facet):

@@ -28,7 +28,7 @@ import copy
 import numpy as np
 import torch
 
-from ..config import index_dtype
+from ..config import index_dtype, real_dtype
 from ..kernels import GatherGemvScatter
 from ..solvers.batched_lu import patch_inverses
 
@@ -481,7 +481,7 @@ def assemble_patch_matrices(patchset, tensors):
                                         tensors.device))
 
 
-def patch_static_operators(patchset, form):
+def patch_static_operators(patchset, form, store=None):
     """One-time (per level) patch contraction of the geometry-only
     Jacobian parts: {"K": viscous, "G": grad-div, "pad_diag"}.  The
     per-Newton-step patch matrix is then
@@ -489,13 +489,32 @@ def patch_static_operators(patchset, form):
         A_p(params, wind) = nu K_p + gamma G_p + advect N_p(wind) + pad
 
     with only the advection part N contracted in the Newton loop (see
-    make_patch_factor_parts)."""
+    make_patch_factor_parts).  K and G are kept in the storage dtype
+    ``store`` (``config.mg_store``; None: the tensors' f64): in f32 they
+    take half the memory, a consistent relative-eps32 perturbation of
+    the operator, and :func:`static_patch_sum` promotes them back."""
     K_el, G_el = form._static_velocity_tensors()
-    return {
-        "K": contract_patch_tensors(patchset, K_el),
-        "G": contract_patch_tensors(patchset, G_el),
-        "pad_diag": patch_padding_diag(patchset, K_el.dtype, K_el.device),
-    }
+    K = contract_patch_tensors(patchset, K_el)
+    G = contract_patch_tensors(patchset, G_el)
+    if store is not None and store != K.dtype:
+        K, G = K.to(store), G.to(store)
+    return {"K": K, "G": G,
+            "pad_diag": patch_padding_diag(patchset, K_el.dtype, K_el.device)}
+
+
+def static_patch_sum(static, params):
+    """nu K_p + gamma G_p + pad in f64 from patch_static_operators' parts;
+    f32-stored parts are promoted one at a time (in place on the f64
+    copies, so that the peak holds two f64 tables, not five)."""
+    K, G = static["K"], static["G"]
+    if K.dtype == real_dtype:
+        return _add_diag(params["nu"] * K + params["gamma"] * G,
+                         static["pad_diag"])
+    A = K.to(real_dtype).mul_(params["nu"])
+    A.add_(G.to(real_dtype).mul_(params["gamma"]))
+    ar = torch.arange(A.shape[-1], device=A.device)
+    A[:, ar, ar] += static["pad_diag"]
+    return A
 
 
 def make_patch_factor_parts(patchset):
@@ -503,8 +522,7 @@ def make_patch_factor_parts(patchset):
     nu K_p + gamma G_p + advect N_p + pad."""
 
     def factor_parts(static, N_el, params):
-        A = _add_diag(params["nu"] * static["K"]
-                      + params["gamma"] * static["G"], static["pad_diag"])
+        A = static_patch_sum(static, params)
         if N_el is not None:
             A = A + params["advect"] * contract_patch_tensors(patchset,
                                                               N_el)

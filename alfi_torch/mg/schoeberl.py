@@ -24,8 +24,9 @@ Matching the reference:
 * the patch factorisations depend only on (nu, gamma) and are rebuilt
   once per Reynolds number.
 
-The patch solve M runs kernel K1 (alfi_torch/kernels.py); A_gd stays
-plain torch.
+The patch solve M runs kernel K1 (alfi_torch/kernels.py), in f64 or, in
+the f32 cycle, f32; A_gd stays plain torch in f64 and runs kernel KB on
+f32 vectors (f64 arithmetic, no TF32).
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ import numpy as np
 import torch
 
 from ..config import real_dtype
+from ..kernels import GradDivTerm
 from ..solvers.batched_lu import patch_inverses
 from .patches import (
-    _add_diag,
     build_patch_solver,
     cell_patches,
     patch_static_operators,
+    static_patch_sum,
 )
 
 
@@ -74,6 +76,9 @@ class SchoeberlTransfer:
         ps = cell_patches(V, zmask.reshape(-1), groups)
         self.patchset = ps
         self.factor, self.papply = build_patch_solver(ps, device=mg.device)
+        #: kernel KB on the fine level's cells, no mask (built at the first
+        #: f32 call)
+        self._gd_term = None
 
     @staticmethod
     def _patch_cell_groups(hierarchy, l):
@@ -101,7 +106,8 @@ class SchoeberlTransfer:
     def static_ops(self):
         """One-time patch contraction of the (wind-free) transfer form's
         parts — see mg/patches.py patch_static_operators."""
-        return patch_static_operators(self.patchset, self.fine_level.form)
+        return patch_static_operators(self.patchset, self.fine_level.form,
+                                      store=self.mg.sdt)
 
     def setup(self, params, static=None):
         """Per-parameter state: patch inverses of the transfer form (nu
@@ -115,15 +121,23 @@ class SchoeberlTransfer:
             tensors = lev.form.velocity_element_tensors(
                 dict(params, advect=0.0), zero_wind)
             return {"lufac": self.factor(tensors), "gamma": params["gamma"]}
-        A = _add_diag(params["nu"] * static["K"]
-                      + params["gamma"] * static["G"], static["pad_diag"])
-        return {"lufac": patch_inverses(A).contiguous(),
+        return {"lufac": patch_inverses(static_patch_sum(static,
+                                                         params)).contiguous(),
                 "gamma": params["gamma"]}
 
     def _apply_gd(self, gamma, v):
         """Raw gamma-grad-div operator via the static low-rank factors
-        (no BC handling)."""
+        (no BC handling), in v's dtype: plain torch in f64, kernel KB on
+        f32 vectors (the f32 cycle)."""
         lev = self.fine_level
+        if v.dtype != real_dtype:
+            if self._gd_term is None:
+                self._gd_term = GradDivTerm(lev.rows.cpu().numpy(),
+                                            lev.V.ndof * self.mg.d,
+                                            device=self.mg.device)
+            return self._gd_term(self.mg.gd_factors(self.l + 1), gamma,
+                                 v.reshape(-1)).reshape(lev.V.ndof,
+                                                        self.mg.d)
         Bt = lev.form.graddiv_factors()  # (nc, nld, q)
         vloc = lev.gather_cells(v.reshape(-1))
         t = torch.einsum("clq,cl->cq", Bt, vloc)
@@ -132,9 +146,10 @@ class SchoeberlTransfer:
 
     def _patch_solve(self, lufac, r):
         """M (zmask * r) in one call of kernel K1: the patch table holds
-        no dof whose zmask is 0, so M never reads r there."""
-        x = self.papply(lufac, r.reshape(-1))
-        return x.reshape(-1, self.mg.d)
+        no dof whose zmask is 0, so M never reads r there.  Inverses kept
+        in f64 under an f32 cycle (ALFI_TORCH_MG_F64_KEYS) apply in f64."""
+        x = self.papply(lufac, r.reshape(-1).to(lufac.dtype))
+        return x.reshape(-1, self.mg.d).to(r.dtype)
 
     def prolong(self, state, uc):
         rhs = self.standard.apply(uc)

@@ -82,18 +82,25 @@ class PointEvalTransfer:
         self.w = torch.as_tensor(source_space.element.tabulate(ref_xi),
                                  dtype=real_dtype, device=device)
 
+    def _weights(self, dtype):
+        """The weights in the vector's dtype (the f32 cycle transfers in
+        f32, as the JAX package does)."""
+        return self.w if dtype == self.w.dtype else self.w.to(dtype)
+
     def apply(self, u_src):
         """Pointwise evaluation: (ndof_t,) or (ndof_t, d) from source."""
+        w = self._weights(u_src.dtype)
         if u_src.dim() == 1:
-            return torch.einsum("il,il->i", self.w, u_src[self.idx])
-        return torch.einsum("il,ild->id", self.w, u_src[self.idx])
+            return torch.einsum("il,il->i", w, u_src[self.idx])
+        return torch.einsum("il,ild->id", w, u_src[self.idx])
 
     def apply_transpose(self, r_tgt):
         """Adjoint (restriction): accumulate weighted rows."""
+        w = self._weights(r_tgt.dtype)
         if r_tgt.dim() == 1:
-            return self._scatter((self.w * r_tgt[:, None]).reshape(-1))
+            return self._scatter((w * r_tgt[:, None]).reshape(-1))
         d = r_tgt.shape[1]
-        vals = self.w[:, :, None] * r_tgt[:, None, :]
+        vals = w[:, :, None] * r_tgt[:, None, :]
         return self._scatter(vals.reshape(-1, d))
 
 

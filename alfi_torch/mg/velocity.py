@@ -24,6 +24,17 @@ coarse LU, SUPG/GLS terms in the level and patch operators, and Burman's
 facet terms there (SV).  The grad-div harness (``alfi_torch/graddiv.py``)
 takes the Chebyshev-driven W-cycle; the Navier-Stokes solver the
 defaults.
+
+Precision (``alfi_torch/config.py``, the JAX package's three switches;
+f64 by default): the cycle dtype ``cdt`` (the state cast once per Newton
+step, the vectors at the preconditioner boundary), the storage dtype
+``sdt`` of the level operators and the static patch parts (f64
+arithmetic), and the smoother dtype ``mdt`` (defect correction: the
+inner Krylov loop on the f64 defect in f32).  With an f32 cycle or f32
+storage the level operators are kept gamma-split: the merged values hold
+the gamma-free part M, narrowed once, and the grad-div term applies from
+its f64 factors (kernel KB), so that gamma * eps32 never rounds it.  The
+factorisations (patch inverses, coarse LU) are always computed in f64.
 """
 
 from __future__ import annotations
@@ -31,7 +42,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import real_dtype
+from ..config import (
+    mg_dtype,
+    mg_f64_keys,
+    mg_smooth_dtype,
+    mg_store,
+    real_dtype,
+)
 from ..fem import (
     BCSet,
     FunctionSpace,
@@ -41,7 +58,7 @@ from ..fem import (
     dg_lagrange,
 )
 from ..fem.scatter import ScatterAdd
-from ..kernels import MergedLevelOperator
+from ..kernels import GradDivTerm, MergedLevelOperator
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import chebyshev, fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
@@ -74,6 +91,13 @@ class MGLevel:
         #: (nc, nloc*d) flattened dof rows
         self.rows = torch.as_tensor(rows, dtype=torch.int64, device=device)
         self._scatter = ScatterAdd(self.rows, V.ndof * V.value_size)
+        self._masks = {mask_u.dtype: mask_u}
+
+    def mask(self, dtype):
+        """The (ndof, d) 0/1 mask in ``dtype`` (cast once)."""
+        if dtype not in self._masks:
+            self._masks[dtype] = self.mask_u.to(dtype)
+        return self._masks[dtype]
 
     def gather_cells(self, v0):
         """(nc, nld) cell-local values from the flat vector ``v0``."""
@@ -98,11 +122,17 @@ class VelocityMG:
         study's weak baseline, examples/graddiv/graddiv.py:140-147);
     smoother_driver : 'fgmres' (the NS solver) or 'chebyshev' (linear,
         for the grad-div harness's CG);
-    cycle : 'full' (FMG, the NS solver), 'v' or 'w'.
+    cycle : 'full' (FMG, the NS solver), 'v' or 'w';
+    cycle_dtype, store_dtype, smooth_dtype : the precision switches
+        (``config.mg_dtype``, ``mg_store``, ``mg_smooth_dtype`` by
+        default), kept as ``cdt``, ``sdt`` and ``mdt``.  Under the
+        Chebyshev driver the smoother runs in the cycle dtype (the JAX
+        package's defect-correction form is FGMRES's).
     """
 
     def __init__(self, solver, transfer_mode="schoeberl", smoother="patch",
-                 smoother_driver="fgmres", cycle="full"):
+                 smoother_driver="fgmres", cycle="full", *, cycle_dtype=None,
+                 store_dtype=None, smooth_dtype=None):
         if transfer_mode not in ("schoeberl", "standard"):
             raise ValueError("transfer_mode %r" % transfer_mode)
         if smoother not in ("patch", "jacobi"):
@@ -114,6 +144,22 @@ class VelocityMG:
         mh = solver.mh
         self.hierarchy = mh
         self.device = solver.device
+        #: the cycle's dtype: vectors, level applies, transfers, patch
+        #: applies; the factorisations stay f64
+        self.cdt = mg_dtype() if cycle_dtype is None else cycle_dtype
+        #: the storage dtype of the level operators and static patch parts
+        self.sdt = mg_store() if store_dtype is None else store_dtype
+        #: the smoother's inner Krylov dtype (defect correction when
+        #: narrower than cdt)
+        self.mdt = (self.cdt if smoother_driver == "chebyshev"
+                    else mg_smooth_dtype() if smooth_dtype is None
+                    else smooth_dtype)
+        for dt in (self.cdt, self.sdt, self.mdt):
+            if dt not in (torch.float64, torch.float32):
+                raise ValueError("precision %s: f32 or f64 only" % dt)
+        #: the level operators gamma-split (M narrowed, the grad-div term
+        #: by kernel KB from f64 factors): under an f32 cycle or f32 storage
+        self.split = self.cdt != real_dtype or self.sdt != real_dtype
         problem = solver.problem
         self.smoothing = solver.smoothing
         self.smoother = smoother
@@ -258,6 +304,33 @@ class VelocityMG:
                 lev.mask_flat.cpu().numpy(), self.facet_rows[l]),
                 device=self.device)
             for l, lev in enumerate(self.levels)]
+        #: per applied level (1 and up) kernel KB, the grad-div term of the
+        #: gamma-split level operator, with the level's BC mask
+        self.graddiv_terms = [None] * self.nlevels
+        if self.split:
+            for l in range(1, self.nlevels):
+                lev = self.levels[l]
+                self.graddiv_terms[l] = GradDivTerm(
+                    lev.rows.cpu().numpy(), lev.V.ndof * d,
+                    keep=lev.mask_flat, device=self.device)
+        self._gd_factors = [None] * self.nlevels
+
+    def gd_factors(self, l):
+        """Level l's grad-div factors (nc, nld, q), f64, contiguous."""
+        if self._gd_factors[l] is None:
+            self._gd_factors[l] = (
+                self.levels[l].form.graddiv_factors().contiguous())
+        return self._gd_factors[l]
+
+    def _check_tf32(self):
+        """An f32 mode on the card must not round its plain f32 products
+        (transfers, Gram-Schmidt dots) to TF32."""
+        if (self.device.type == "cuda"
+                and torch.float32 in (self.cdt, self.sdt, self.mdt)
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError(
+                "the f32 multigrid modes need full f32 products: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False")
 
     # ------------------------------------------------------------------
     # per-level masked operator from element tensors
@@ -273,10 +346,19 @@ class VelocityMG:
         mask * (sum_c R_c^T T_c R_c + sum_f R_f^T F_f R_f) (mask * v)
         + (1 - mask) * v, the facet sum with Burman's stabilisation only,
         in one call of kernel KM on the merged values ``vals`` =
-        level_assemble(l, ...)."""
+        level_assemble(l, ...), in v's dtype.  A gamma-split ``vals``,
+        {"M": merged values of the gamma-free part, "gamma": gamma}, adds
+        the grad-div term from the f64 factors by kernel KB."""
         lev = self.levels[l]
-        return self.level_ops[l](vals, v.reshape(-1)).reshape(lev.V.ndof,
-                                                              self.d)
+        return self._apply_flat(l, vals, v.reshape(-1)).reshape(lev.V.ndof,
+                                                                self.d)
+
+    def _apply_flat(self, l, vals, v):
+        if not isinstance(vals, dict):
+            return self.level_ops[l](vals, v)
+        y = self.level_ops[l](vals["M"], v)
+        return self.graddiv_terms[l](self.gd_factors(l), vals["gamma"], v,
+                                     y, out=y)
 
     # ------------------------------------------------------------------
     def transfer_setup(self, params, statics=None):
@@ -297,7 +379,7 @@ class VelocityMG:
         transfers)."""
         levels = [
             (patch_static_operators(self.patchsets[l - 1],
-                                    self.levels[l].form)
+                                    self.levels[l].form, store=self.sdt)
              if self.factor_parts[l - 1] is not None else None)
             for l in range(1, len(self.patchsets) + 1)
         ]
@@ -315,7 +397,16 @@ class VelocityMG:
         factorisations are ``schoeberl_state`` = transfer_setup()).  With
         a stabilisation the fine pressure ``p_fine`` is required: its
         terms need the pressure on every level.  With the Chebyshev
-        driver, each smoothed level's eigenvalue estimate too."""
+        driver, each smoothed level's eigenvalue estimate too.
+
+        Precision: gamma-split (``self.split``), each applied level's state
+        entry is {"M": the gamma-free part summed by KA in f64, then
+        narrowed to the storage or cycle dtype, "gamma"}; the patch
+        inverses and the Jacobi diagonals come from the f64 sums.  Under an
+        f32 cycle the patch inverses and the Schoeberl state are cast to
+        f32 (but for ALFI_TORCH_MG_F64_KEYS), the coarse factor never; the
+        defect-correction smoother's inverses are cast to ``mdt``."""
+        self._check_tf32()
         winds = [None] * self.nlevels
         winds[-1] = u_fine
         for l in range(self.nlevels - 2, -1, -1):
@@ -333,7 +424,7 @@ class VelocityMG:
             fwinds[-1] = params["wind"]
             for l in range(self.nlevels - 2, -1, -1):
                 fwinds[l] = self.injects[l].apply(fwinds[l + 1])
-        tensors, N_els = [], []
+        tensors, N_els, M_els = [], [], []
         for l in range(self.nlevels):
             form = self.levels[l].form
             K_el, G_el = form._static_velocity_tensors()
@@ -344,6 +435,7 @@ class VelocityMG:
             M_el = params["nu"] * K_el + params["advect"] * N_el
             tensors.append(M_el + params["gamma"] * G_el)
             N_els.append(N_el)
+            M_els.append(M_el if self.split else None)
         ftensors = [None] * self.nlevels
         if self.stab_facet is not None:
             # per-level Burman facet Jacobians at the injected winds,
@@ -378,13 +470,39 @@ class VelocityMG:
                                          facet_tensors=ftensors[0],
                                          facet_rows=self.facet_rows[0])
         # level 0 is solved densely and never applied
-        level_ops = [None] + [self.level_assemble(l, tensors[l], ftensors[l])
-                              for l in range(1, self.nlevels)]
-        if self.smoother == "jacobi":
-            # the operator diagonals, read off the merged values
-            patch_lufacs = [
-                self.level_ops[l].diagonal(level_ops[l]).reshape(-1, self.d)
+        keys = mg_f64_keys() if self.cdt != real_dtype else set()
+        if not self.split:
+            level_ops = [None] + [
+                self.level_assemble(l, tensors[l], ftensors[l])
                 for l in range(1, self.nlevels)]
+        else:
+            # the narrowed stream: the storage dtype, or under an f32 cycle
+            # the cycle dtype unless the keys keep the level operators
+            store = self.sdt
+            if self.cdt != real_dtype:
+                store = (real_dtype if keys & {"tensors", "ftensors",
+                                               "level_ops"} else self.cdt)
+            level_ops = [None] + [
+                {"M": self.level_assemble(l, M_els[l], ftensors[l]).to(store),
+                 "gamma": params["gamma"]}
+                for l in range(1, self.nlevels)]
+        if self.smoother == "jacobi":
+            # the operator diagonals, read off the merged f64 values (of
+            # the whole operator, the grad-div part included)
+            patch_lufacs = [
+                self.level_ops[l].diagonal(
+                    level_ops[l] if not self.split
+                    else self.level_assemble(l, tensors[l], ftensors[l])
+                ).reshape(-1, self.d)
+                for l in range(1, self.nlevels)]
+        if self.cdt != real_dtype:
+            if "patch_lufacs" not in keys:
+                patch_lufacs = [t.to(self.cdt) for t in patch_lufacs]
+            if schoeberl_state is not None and "schoeberl" not in keys:
+                schoeberl_state = [dict(t, lufac=t["lufac"].to(self.cdt))
+                                   for t in schoeberl_state]
+        if self.mdt != self.cdt:
+            patch_lufacs = [t.to(self.mdt) for t in patch_lufacs]
         state = {
             "tensors": tensors,
             "ftensors": ftensors,
@@ -406,23 +524,25 @@ class VelocityMG:
         smoother, r / diag (diag 1 on masked dofs)."""
         inv = state["patch_lufacs"][l - 1]
         if self.smoother == "jacobi":
-            return lambda r: r / inv
+            return lambda r: (r / inv).to(r.dtype)
 
         _, papply = self.patch_solvers[l - 1]
         if self.patch_composition == "multiplicative":
-            vals, op = state["level_ops"][l], self.level_ops[l]
+            vals = state["level_ops"][l]
             keep = self.levels[l].keep
 
             def pc(r):
-                r0 = r.reshape(-1)
-                x = papply(inv, r0, lambda v: op(vals, v))
-                return torch.where(keep, x, r0).reshape(-1, self.d)
+                r0 = r.reshape(-1).to(inv.dtype)
+                x = papply(inv, r0, lambda v: self._apply_flat(l, vals, v))
+                return torch.where(keep, x, r0).reshape(-1, self.d).to(
+                    r.dtype)
 
             return pc
 
         def pc(r):
-            r0 = r.reshape(-1)
-            return papply(inv, r0, r0).reshape(-1, self.d)
+            # inverses kept in f64 under an f32 cycle apply in f64
+            r0 = r.reshape(-1).to(inv.dtype)
+            return papply(inv, r0, r0).reshape(-1, self.d).to(r.dtype)
 
         return pc
 
@@ -440,8 +560,9 @@ class VelocityMG:
         def op(x):
             return pc(self.level_apply(l, vals, x))
 
-        v = lev.mask_u * torch.ones((lev.V.ndof, self.d), dtype=real_dtype,
-                                    device=self.device)
+        v = lev.mask(self.cdt) * torch.ones((lev.V.ndof, self.d),
+                                            dtype=self.cdt,
+                                            device=self.device)
         v = v / torch.linalg.norm(v)
         Vs = [v]
         H = torch.zeros((k + 1, k), dtype=real_dtype, device=self.device)
@@ -464,16 +585,21 @@ class VelocityMG:
 
     # ------------------------------------------------------------------
     def _coarse_solve(self, state, r):
+        """The f64 coarse factor applied at its boundary, in r's dtype."""
         lev0 = self.levels[0]
-        x = coarse_solve(state["coarse_fac"], r.reshape(-1))
-        mask = lev0.mask_u
+        x = coarse_solve(state["coarse_fac"],
+                         r.reshape(-1).to(real_dtype)).to(r.dtype)
+        mask = lev0.mask(r.dtype)
         return x.reshape(-1, self.d) * mask + (1.0 - mask) * r
 
     def _smooth(self, l, state, b, x0):
         """Fixed-iteration level smoother: FGMRES(smoothing) + PC
         (ksp_convergence_test skip), or Chebyshev(smoothing) + PC for the
         grad-div harness.  ``x0=None`` means a zero initial guess (the
-        defect is then ``b`` itself)."""
+        defect is then ``b`` itself).  With ``mdt`` narrower than b, the
+        defect-correction form: the defect b - A x0 in b's dtype, FGMRES
+        from zero on it in ``mdt``, the correction added in b's dtype (the
+        JAX package's ``VelocityMG._smooth``)."""
         vals = state["level_ops"][l]
 
         def A(v):
@@ -483,17 +609,24 @@ class VelocityMG:
         if self.smoother_driver == "chebyshev":
             return chebyshev(A, b, self._smoother_pc(l, state), x0=x0,
                              maxit=m, lmax=state["lmax"][l - 1])
+        if self.mdt != b.dtype:
+            r0 = b if x0 is None else b - A(x0)
+            e, _ = fgmres(A, r0.to(self.mdt), pc=self._smoother_pc(l, state),
+                          x0=None, rtol=0.0, atol=-1.0, maxit=m, restart=m)
+            e = e.to(b.dtype)
+            return e if x0 is None else x0 + e
         x, _ = fgmres(A, b, pc=self._smoother_pc(l, state), x0=x0,
                       rtol=0.0, atol=-1.0, maxit=m, restart=m)
         return x
 
     def _prolong(self, l, state, xc):
-        """Correction prolongation coarse level l -> l+1."""
+        """Correction prolongation coarse level l -> l+1, in xc's dtype."""
         if self.schoeberl is None:
             xf = self.prolongs[l].apply(xc)
         else:
             xf = self.schoeberl[l].prolong(state["schoeberl"][l], xc)
-        return self.levels[l + 1].mask_u * xf
+        xf = xf.to(xc.dtype)
+        return self.levels[l + 1].mask(xf.dtype) * xf
 
     def _restrict(self, l, state, rf):
         """Residual restriction level l+1 -> l: the Schoeberl adjoint only
@@ -503,7 +636,8 @@ class VelocityMG:
             rc = self.schoeberl[l].restrict(state["schoeberl"][l], rf)
         else:
             rc = self.prolongs[l].apply_transpose(rf)
-        return self.levels[l].mask_u * rc
+        rc = rc.to(rf.dtype)
+        return self.levels[l].mask(rc.dtype) * rc
 
     def vcycle(self, l, state, b, x0, ncoarse=1):
         """One V-cycle (ncoarse=2: W-cycle, two coarse corrections on
@@ -535,9 +669,16 @@ class VelocityMG:
 
     def make_solve_A(self, state):
         """rv -> MG-approximate A^{-1} rv (one Richardson iteration from
-        zero = one cycle of the configured kind)."""
+        zero = one cycle of the configured kind).  The cycle runs in
+        ``self.cdt``: rv is cast here, at the preconditioner boundary, and
+        the result cast back, so that the outer Krylov stays f64."""
         if self.cycle == "full":
-            return lambda rv: self.fmg(state, rv)
-        ncoarse = 2 if self.cycle == "w" else 1
-        return lambda rv: self.vcycle(self.nlevels - 1, state, rv, None,
-                                      ncoarse=ncoarse)
+            def cycle(rv):
+                return self.fmg(state, rv)
+        else:
+            ncoarse = 2 if self.cycle == "w" else 1
+
+            def cycle(rv):
+                return self.vcycle(self.nlevels - 1, state, rv, None,
+                                   ncoarse=ncoarse)
+        return lambda rv: cycle(rv.to(self.cdt)).to(rv.dtype)

@@ -102,6 +102,12 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
         raise ValueError("the fixed-iteration mode runs one Arnoldi "
                          "cycle: maxit must not exceed restart")
     ref = leaves(b)[0]
+    # the scalar state (Hessenberg, Givens, residual estimate) follows the
+    # vectors' dtype: an f32 smoother loop never promotes through an f64
+    # scalar, and the f64 outer solve is unchanged
+    vdt = ref.dtype
+    for x in leaves(b)[1:]:
+        vdt = torch.promote_types(vdt, x.dtype)
 
     def opA(v):
         return project(A(v))
@@ -127,9 +133,9 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
         V = _stack_zeros(b, m + 1)
         _set(V, 0, tscale(1.0 / (beta + _EPS), r))
         Z = _stack_zeros(b, m)
-        R = torch.zeros((m + 1, m), dtype=ref.dtype, device=ref.device)
-        rot = torch.zeros((m, 2, 2), dtype=ref.dtype, device=ref.device)
-        g = torch.zeros((m + 1,), dtype=ref.dtype, device=ref.device)
+        R = torch.zeros((m + 1, m), dtype=vdt, device=ref.device)
+        rot = torch.zeros((m, 2, 2), dtype=vdt, device=ref.device)
+        g = torch.zeros((m + 1,), dtype=vdt, device=ref.device)
         g[0] = beta
         j = 0
         rnorm = beta
@@ -141,7 +147,7 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
             w, h = cgs2(V, w, j + 1)  # orthogonalise against V[0..j]
             hj1 = tnorm(w)
             _set(V, j + 1, tscale(1.0 / (hj1 + _EPS), w))
-            hcol = torch.zeros((m + 1,), dtype=ref.dtype, device=ref.device)
+            hcol = torch.zeros((m + 1,), dtype=vdt, device=ref.device)
             hcol[:j + 1] = h
             hcol[j + 1] = hj1
             # apply the stored Givens rotations to the new column

@@ -57,6 +57,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``index_put_(accumulate=True)`` of the same contributions as the
    library call; KM on the AMG fine operator is 3b's "level L2" table
    (the same pattern, checked), not timed again;
+3e. the precision modes' kernels (phase 20 drives them) against their
+   plain versions: K1 in f32 at the 2D L2 smoother table (4,225 x 14,
+   out-masked), the 3D L2 table (4,913 x 189) and the SV 3D L1 table
+   (125 x 1,590), 1e-5 (f32 sums); KM in its three mixed modes (f64
+   values on f32 vectors, f32 values on f64 vectors, f32 on f32) at the
+   2D L2 and 3D L2 level patterns, 1e-6, 1e-13 and 1e-5; KB, the
+   gamma-split grad-div term, at the 2D L2 and SV 2D L2 levels on f64
+   and f32 vectors, 1e-13 and 1e-6; two launches bitwise equal; device
+   times, bounds, plain versions and cuSPARSE in the same (KM: the
+   promoted) dtype, for KB on gamma G as CSR;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -168,6 +178,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the driver, whose refined VTU file holds the refined mesh's vertices
    and finite values;
 
+20. the precision modes (``alfi_torch/config.py``): (b) the bench config
+   in f64 and in each mode (dc32, the defect-correction f32 smoother;
+   store32, f32 storage; cycle32, the f32 cycle), warm, Re 1 -> 10 ->
+   100, each held to its JAX CPU log
+   (results/torch_h100/iters_ldc2d_nref2_re100_<mode>_jax_cpu.log) by
+   phase 7's rule and to the JAX package's gates against the f64 control
+   (dc32 and store32 c64 + 1, the f32 cycle 1.10 c64 + 1, per Re; where
+   the JAX package's own logs, f64 in iters_ldc2d_nref2_re100_jax_cpu.log,
+   miss a gate, its mode's count is the bound), with seconds per Re and
+   peak device memory beside f64; (c) the 3D
+   scale row in f64, dc32 and store32, Re 1 -> 10 -> 100, every Re
+   converged, with counts, seconds, peak memory and the memory each
+   built solver holds; K1 in f32, KM in each mixed mode and KB must have
+   launched (their rows' launches are phase 20's);
+
 then print the kernel table as one JSON line (every K1 table of phases
 3 to 3c in the variant its main path calls, and KM and KA of every level
 table, with the launches of the phase that drives it: 7 for the 2D
@@ -178,7 +203,7 @@ result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 3c (the kernel
+``python3 chip_smoke.py --kernels-only`` stops after phase 3e (the kernel
 rows and the K3 times) and prints no result line: for measurements of the
 kernels alone.
 """
@@ -321,6 +346,20 @@ BASELINE_BENCH_RES = {"alamg": [1], "simple": [1, 10, 100], "lsc": [1]}
 #: fourth.  Such a solve is held to: converged as the log says, every
 #: linear solve at maxit but possibly the last.
 BASELINE_MAXIT = 500
+#: phase 20: the precision modes' gates against the port's f64 control,
+#: Krylov <= scale * c64 + plus per Re (tests/test_mixed_cycle.py)
+PRECISION_GATES = {"dc32": (1.0, 1), "store32": (1.0, 1),
+                   "cycle32": (1.10, 1)}
+#: and the JAX package's CPU logs of the bench config in each mode and in
+#: f64.  At Re 100 the JAX package's own f32 cycle misses its gate there
+#: (12 Krylov against its f64 run's 9 > 1.10 * 9 + 1): where the JAX logs
+#: miss a gate, the port is held to the JAX mode's count instead
+PRECISION_LOGS = {
+    mode: os.path.join("results", "torch_h100",
+                       "iters_ldc2d_nref2_re100_%s_jax_cpu.log" % mode)
+    for mode in PRECISION_GATES}
+PRECISION_LOGS["f64"] = os.path.join("results", "torch_h100",
+                                     "iters_ldc2d_nref2_re100_jax_cpu.log")
 BASELINE_BENCH_LOGS = {
     mode: os.path.join("results", "torch_h100",
                        "iters_ldc2d_nref2_re100_%s_jax_cpu.log" % mode)
@@ -336,6 +375,8 @@ REL_TOL = 1e-13
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
+#: f32 FLOP/s outside the tensor cores (the f32 kernels)
+F32_FLOP_PER_S = 67e12
 #: and in them (the same data sheet), for the K3 library call's bound
 F64_TENSOR_FLOP_PER_S = 67e12
 #: bytes written between launches to evict the 50 MB L2
@@ -350,6 +391,9 @@ PALLAS_GEMV = ("alfi_tpu/solvers/patch_pallas.py:46 _gemv_kernel "
 XLA_LEVEL_APPLY = ("alfi_tpu/mg/velocity.py:437 and :449 (plain-XLA "
                    "level_apply, cell and facet branches; no Pallas kernel)")
 REPLACES = {"K1": PALLAS_GEMV, "KM": XLA_LEVEL_APPLY, "KA": XLA_LEVEL_APPLY,
+            "KB": "alfi_tpu/mg/velocity.py:417-431 (gamma-split dict branch "
+                  "of level_apply) and alfi_tpu/mg/schoeberl.py:128-140 "
+                  "(_apply_gd), plain XLA; no Pallas kernel",
             "KG": "alfi_tpu/mg/amg.py:239-255 (VelocityAMG._galerkin1, a "
                   "plain-XLA scatter into the dense level-1 matrix; no "
                   "Pallas kernel)"}
@@ -439,32 +483,34 @@ def _library_operator(op, A):
                                    (op.n, op.n))
 
 
-def _bound_bytes(op):
+def _bound_bytes(op, itemsize=8):
     """What one call on this table's data must move, each byte once, by
     part: the A entries whose row feeds a live output dof and whose
-    column gathers a live dof (one f64 multiply-add each), the index
-    table, x at the dofs gathered, out, the in-mask only where it zeroes
-    a gathered entry, the out-mask, and the passthrough where the
-    out-mask is 0."""
+    column gathers a live dof (one multiply-add each), the index table, x
+    at the dofs gathered, out, the in-mask only where it zeroes a
+    gathered entry, the out-mask, and the passthrough where the out-mask
+    is 0; ``itemsize`` bytes a value (8: f64, 4: f32)."""
     import torch
 
     nb, m, _ = op.ashape
     live = op.gidx >= 0  # gathered entries: not a pad, in-mask 1
-    parts = {"A": op.a_bytes()[1], "index": 4 * nb * m, "out": 8 * op.n,
-             "x": 8 * int(torch.unique(op.gidx[live]).numel())}
+    parts = {"A": op.a_bytes(itemsize=itemsize)[1], "index": 4 * nb * m,
+             "out": itemsize * op.n,
+             "x": itemsize * int(torch.unique(op.gidx[live]).numel())}
     if op.in_keep is not None and bool(((op.pidx < op.n) & ~live).any()):
         parts["in_mask"] = op.n
     if op.out_keep is not None:
         parts["out_mask"] = op.n
-        parts["passthrough"] = 8 * int((~op.out_keep).sum())
+        parts["passthrough"] = itemsize * int((~op.out_keep).sum())
     return parts
 
 
-def _bound_of(parts, ops):
+def _bound_of(parts, ops, flops=F64_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the larger of the bytes ``parts``
-    over the memory rate and ``ops`` f64 operations over the f64 rate."""
+    over the memory rate and ``ops`` operations over the rate ``flops``
+    (the f64 rate unless given)."""
     t_bytes = sum(parts.values()) / HBM_BYTES_PER_S
-    t_ops = ops / F64_FLOP_PER_S
+    t_ops = ops / flops
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -476,19 +522,20 @@ def _bound(op):
     return _bound_of(parts, 2.0 * (parts["A"] // 8))
 
 
-def _merged_bound_bytes(op):
+def _merged_bound_bytes(op, vbytes=8, xbytes=8):
     """What one KM call on a merged level operator must move, each byte
-    once: the merged values and their block columns, the row pointers,
-    x at the dofs gathered or passed through, the mask, out."""
+    once: the merged values (``vbytes`` each) and their block columns,
+    the row pointers, x at the dofs gathered or passed through, the mask,
+    out (``xbytes`` a vector value)."""
     import numpy as np
 
     p, d = op.pattern, op.d
     cols = np.unique(p.bcol).astype(np.int64)
     xdofs = np.union1d((cols[:, None] * d + np.arange(d)).reshape(-1),
                        np.flatnonzero(~p.keep))
-    return {"values": 8 * d * d * p.nnzb, "index": 4 * p.nnzb,
-            "rowptr": 4 * (p.nodes + 1), "x": 8 * len(xdofs), "mask": p.n,
-            "out": 8 * p.n}
+    return {"values": vbytes * d * d * p.nnzb, "index": 4 * p.nnzb,
+            "rowptr": 4 * (p.nodes + 1), "x": xbytes * len(xdofs),
+            "mask": p.n, "out": xbytes * p.n}
 
 
 def _merged_bound(op):
@@ -1561,6 +1608,302 @@ def _adjoint_phase(make, parser):
         raise AssertionError("the refined VTU file is wrong")
 
 
+# ----------------------------------------------------------------------
+# phase 3e and 20: the precision modes
+# ----------------------------------------------------------------------
+def _set_precision(mode):
+    """The port's three precision switches (``alfi_torch/config.py``) to
+    ``mode``: "f64", "dc32" (the defect-correction f32 smoother),
+    "store32" (f32 storage, f64 arithmetic) or "cycle32" (the f32
+    cycle)."""
+    import torch
+
+    from alfi_torch import config
+
+    f32, f64 = torch.float32, torch.float64
+    config.set_mg_dtype(f32 if mode == "cycle32" else f64)
+    config.set_mg_store(f32 if mode in ("store32", "cycle32") else f64)
+    config.set_mg_smooth_dtype(f32 if mode in ("dc32", "cycle32") else f64)
+
+
+def _rel_err(y, yp):
+    import torch
+
+    y, yp = y.to(torch.float64), yp.to(torch.float64)
+    a = float((y - yp).abs().max())
+    return a, a / max(float(yp.abs().max()), 1e-300)
+
+
+def _precision_row(name, kernel, fn, plain, library, tol, bound, flush,
+                   only):
+    """Check ``fn`` (one wrapper call) against ``plain`` (max relative
+    error <= ``tol``, two launches bitwise equal), time it warm and cold,
+    the plain version and the library call; ``bound`` = (ms, by)."""
+    import torch
+
+    y1, y2, yp = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError("%s: two launches differ" % name)
+    abs_err, rel_err = _rel_err(y1, yp)
+    if not rel_err <= tol:
+        raise AssertionError("%s: kernel vs plain max rel err %.3e > %.0e"
+                             % (name, rel_err, tol))
+    # a call of two kernels (KB) is timed as their sum, warm only
+    r = {"name": name, "kernel": kernel, "abs_err": abs_err,
+         "rel_err": rel_err, "dev_ms": _device_ms(fn, only=only),
+         "cold_ms": (None if only is None
+                     else _device_ms(fn, only=only, before=flush)),
+         "plain_dev_ms": _device_ms(plain),
+         "library_dev_ms": (None if library is None
+                            else _device_ms(library))}
+    r["bound_ms"], r["bound_by"] = bound
+    print("%-34s %8.2e (tol %.0e) | device %s ms (cold %s) | bound %.2f us "
+          "%s, %s | plain %s | library %s"
+          % (name, rel_err, tol, _fmt(r["dev_ms"]), _fmt(r["cold_ms"]),
+             1e3 * r["bound_ms"], r["bound_by"],
+             _share(r["bound_ms"], r["dev_ms"]), _fmt(r["plain_dev_ms"]),
+             _fmt(r["library_dev_ms"])), flush=True)
+    return r
+
+
+def _graddiv_library(term, B, gamma):
+    """gamma * sum_c R_c^T B_c B_c^T R_c with the term's mask in and out,
+    as one CSR matrix for cuSPARSE."""
+    import torch
+
+    nc, nld, _ = B.shape
+    G = gamma * torch.einsum("cip,cjp->cij", B, B)
+    live = term.gidx >= 0
+    rows = term.gidx.long()[:, :, None].expand(nc, nld, nld)
+    cols = term.gidx.long()[:, None, :].expand(nc, nld, nld)
+    keep = live[:, :, None] & live[:, None, :]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), G[keep],
+        (term.n, term.n)).coalesce()
+    crow = torch._convert_indices_from_coo_to_csr(coo.indices()[0], term.n)
+    return torch.sparse_csr_tensor(crow, coo.indices()[1], coo.values(),
+                                   (term.n, term.n))
+
+
+def _precision_kernels(head, scale, sv2d, sv3d, rng, flush):
+    """Phase 3e: K1 in f32 at the 2D L2, 3D L2 and SV 3D L1 tables, KM in
+    its three mixed modes at the 2D L2 and 3D L2 level patterns, and KB at
+    the 2D L2 and SV 2D L2 levels, each against its plain version on the
+    card, with device times, bounds and library calls (cuSPARSE in the
+    same or the promoted dtype).  Returns the result rows."""
+    import torch
+
+    from alfi_torch.kernels import GatherGemvScatter, GradDivTerm
+
+    f32, f64 = torch.float32, torch.float64
+    rows = []
+    # K1 f32: the main path's tables (the smoother's, out-masked) in f32
+    for name, op in (("K1 f32 smoother L2", head.vmg.patch_solvers[1][1]),
+                     ("K1 f32 3D L2", scale.vmg.patch_solvers[-1][1]),
+                     ("K1 f32 SV 3D L1", sv3d.vmg.patch_solvers[-1][1])):
+        nb, m, _ = op.ashape
+        dev = op.device
+        A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev,
+                            dtype=f32)
+        x = torch.as_tensor(rng.standard_normal(op.n), device=dev, dtype=f32)
+        p = torch.as_tensor(rng.standard_normal(op.n), device=dev, dtype=f32)
+        args = (p,) if op.out_keep is not None else ()
+        bare = GatherGemvScatter(op.pidx.cpu().numpy(), op.n, "K1",
+                                 device=dev)
+        lib = _library_operator(bare, A)
+        del bare
+        parts = _bound_bytes(op, itemsize=4)
+        r = _precision_row(
+            "%s (%d x %d, %s)" % (name, nb, m, KERNEL_OF_PATH[
+                op.kernel_path()]), "K1 f32", lambda: op(A, x, *args),
+            lambda: op.plain(A, x, *args), lambda: lib @ x, 1e-5,
+            _bound_of(parts, 2.0 * parts["A"] / 4, F32_FLOP_PER_S), flush,
+            KERNEL_NAME)
+        r["kernel_path"] = KERNEL_OF_PATH[op.kernel_path()]
+        rows.append(r)
+        del A, lib
+        torch.cuda.empty_cache()
+    # KM in its three mixed modes
+    for lname, vmg, l in (("2D L2", head.vmg, 2), ("3D L2", scale.vmg, 2)):
+        op = vmg.level_ops[l]
+        dev = op.device
+        vals = torch.as_tensor(rng.standard_normal(op.vshape), device=dev)
+        x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+        for vt, xt, tol in ((f64, f32, 1e-6), (f32, f64, 1e-13),
+                            (f32, f32, 1e-5)):
+            v, xx = vals.to(vt), x.to(xt)
+            ct = torch.promote_types(vt, xt)
+            lib = _merged_library_operator(op, v.to(ct))
+            xc = xx.to(ct)
+            parts = _merged_bound_bytes(op, vbytes=v.element_size(),
+                                        xbytes=xx.element_size())
+            mode = "%s/%s" % tuple("f32" if t == f32 else "f64"
+                                   for t in (vt, xt))
+            rows.append(_precision_row(
+                "KM %s %s (%d blocks of %dx%d)" % (mode, lname,
+                                                   op.pattern.nnzb, op.d,
+                                                   op.d),
+                "KM " + mode, lambda: op(v, xx), lambda: op.plain(v, xx),
+                lambda: lib @ xc, tol,
+                _bound_of(parts, 2.0 * op.d * op.d * op.pattern.nnzb,
+                          F32_FLOP_PER_S if ct == f32 else F64_FLOP_PER_S),
+                flush, KM_NAME))
+            del lib
+        del vals
+        torch.cuda.empty_cache()
+    # KB, the gamma-split grad-div term, f64 arithmetic
+    for lname, vmg, l in (("2D L2", head.vmg, 2), ("SV 2D L2", sv2d.vmg, 2)):
+        lev = vmg.levels[l]
+        dev = vmg.device
+        term = GradDivTerm(lev.rows.cpu().numpy(), lev.V.ndof * vmg.d,
+                           keep=lev.mask_flat, device=dev)
+        B = vmg.gd_factors(l)
+        lib = _graddiv_library(term, B, 1e4)
+        for xt, tol in ((f64, 1e-13), (f32, 1e-6)):
+            x = torch.as_tensor(rng.standard_normal(term.n), device=dev,
+                                dtype=xt)
+            y = torch.as_tensor(rng.standard_normal(term.n), device=dev,
+                                dtype=xt)
+            xl, yl = x.to(f64), y.to(f64)
+            itemsize = x.element_size()
+            nc, nld, q = B.shape
+            live = term.gidx >= 0
+            parts = {"B": 8 * B.numel(), "gidx": 4 * nc * nld,
+                     "lists": 4 * (term.n + 1) + 4 * term.slots.numel(),
+                     "x": itemsize * int(torch.unique(
+                         term.gidx[live]).numel()),
+                     "y": itemsize * term.n, "out": itemsize * term.n}
+            rows.append(_precision_row(
+                "KB %s %s (%d cells x %d x q=%d)" % (
+                    "f32" if xt == f32 else "f64", lname, nc, nld, q), "KB",
+                lambda: term(B, 1e4, x, y), lambda: term.plain(B, 1e4, x, y),
+                lambda: yl + lib @ xl, tol,
+                _bound_of(parts, 4.0 * nc * nld * q, F64_FLOP_PER_S), flush,
+                None))
+        del lib, term
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _precision_sweep(label, build, res, warm):
+    """Build a solver (the precision switches already set), optionally
+    warm it with one Re-1 solve from zero, then solve ``res`` from zero;
+    returns (counts, seconds per Re, peak device memory above what was
+    allocated before the build, bytes the built solver holds)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = build()
+    solver.verbose = False
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - before
+    if warm:
+        solver.solve(1)
+        solver.z = solver.bcset.apply(solver.Z.zero(torch.device("cuda")))
+        solver.z_last = solver.z
+    rows, total = _solve_sweep(solver, res)
+    peak = torch.cuda.max_memory_allocated() - before
+    vmg = solver.vmg
+    print("%s: %d dofs (cdt %s, sdt %s, mdt %s), built in %.2f s holding "
+          "%.3f GB; Re %s in %.3f s; peak device memory %.3f GB above what "
+          "was allocated before the build"
+          % (label, solver.Z.dim, vmg.cdt, vmg.sdt, vmg.mdt, built,
+             held / 1e9, "->".join(str(r) for r in res), total, peak / 1e9),
+          flush=True)
+    counts = [(r[1], r[2]) for r in rows]
+    secs = [r[3] for r in rows]
+    del solver, vmg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, secs, peak, held
+
+
+def _precision_phase(make, scale_build, here):
+    """Phase 20: (b) the bench config in f64 and in each mode, warm, Re 1
+    -> 10 -> 100: each mode's counts against its JAX CPU log (the same
+    Newton counts, Krylov within one per Newton step) and against the f64
+    control by the JAX package's gates (dc32 and store32 c64 + 1, the f32
+    cycle 1.10 c64 + 1, per Re; where the JAX package's own logs miss the
+    gate, its mode's Krylov count is the bound); (c) the 3D scale row in
+    f64, dc32 and
+    store32, Re 1 -> 10 -> 100, cold, every Re converged.  The launch
+    counts are zeroed before (b) and read after (c); K1 in f32, KM in each
+    mixed mode and KB must have launched.  Returns the counts."""
+    from alfi_torch import kernels
+
+    kernels.reset_launch_counts()
+    try:
+        bench = {}
+        for mode in ("f64",) + tuple(PRECISION_GATES):
+            _set_precision(mode)
+            bench[mode] = _precision_sweep(
+                "precision bench %s" % mode, lambda: make(16, 2), BENCH_RES,
+                warm=True)
+        c64 = bench["f64"][0]
+        j64 = _log_solves(os.path.join(here, PRECISION_LOGS["f64"]))
+        for mode, (scale_k, plus) in PRECISION_GATES.items():
+            counts, secs, peak, _ = bench[mode]
+            want = _log_solves(os.path.join(here, PRECISION_LOGS[mode]))
+            print("precision bench %s: Krylov/Newton %s (JAX CPU log %s, "
+                  "f64 control %s); s per Re %s (f64 %s); peak %.3f GB (f64 "
+                  "%.3f)" % (mode, counts, want, c64,
+                             ", ".join("%.3f" % t for t in secs),
+                             ", ".join("%.3f" % t for t in bench["f64"][1]),
+                             peak / 1e9, bench["f64"][2] / 1e9), flush=True)
+            for re, (k, n), (kj, nj), (k64, _), (kj64, _) in zip(
+                    BENCH_RES, counts, want, c64, j64):
+                if not (n == nj and k <= kj + nj):
+                    raise AssertionError(
+                        "precision %s Re=%s: %d/%d against the JAX CPU "
+                        "log's %d/%d" % (mode, re, k, n, kj, nj))
+                bound = scale_k * k64 + plus
+                if kj > scale_k * kj64 + plus:
+                    print("precision %s Re=%s: the JAX package misses the "
+                          "gate itself (%d Krylov against its f64 %d): held "
+                          "to its %d" % (mode, re, kj, kj64, kj), flush=True)
+                    bound = max(bound, kj)
+                if not k <= bound:
+                    raise AssertionError(
+                        "precision %s Re=%s: %d Krylov against the f64 "
+                        "control's %d (gate %.2f c64 + %d)"
+                        % (mode, re, k, k64, scale_k, plus))
+        scale = {}
+        for mode in ("f64", "dc32", "store32"):
+            _set_precision(mode)
+            scale[mode] = _precision_sweep("precision 3D scale row %s" % mode,
+                                           scale_build, BENCH_RES,
+                                           warm=False)
+        for mode in ("dc32", "store32"):
+            counts, secs, peak, held = scale[mode]
+            print("precision 3D scale row %s: Krylov/Newton %s (f64 %s); s "
+                  "per Re %s (f64 %s); peak %.3f GB (f64 %.3f); solver holds "
+                  "%.3f GB (f64 %.3f)"
+                  % (mode, counts, scale["f64"][0],
+                     ", ".join("%.3f" % t for t in secs),
+                     ", ".join("%.3f" % t for t in scale["f64"][1]),
+                     peak / 1e9, scale["f64"][2] / 1e9, held / 1e9,
+                     scale["f64"][3] / 1e9), flush=True)
+    finally:
+        _set_precision("f64")
+    out = {"K1 f32": kernels.GatherGemvScatter.f32_launches["K1"]}
+    out.update(("KM " + k, v)
+               for k, v in kernels.MergedLevelOperator.mode_launches.items())
+    out["KB"] = kernels.GradDivTerm.launches["KB"]
+    print("precision phase kernel launches: %s" % out, flush=True)
+    for key, n in out.items():
+        if n <= 0:
+            raise AssertionError("precision phase: %s never launched" % key)
+    return out
+
+
 def main(kernels_only=False):
     import torch
 
@@ -1730,6 +2073,11 @@ def main(kernels_only=False):
         raise AssertionError("the AMG fine pattern is not level L2's")
     table.append(_check_galerkin("KA Galerkin bench", alamg_bench.vamg, rng,
                                  flush_buf.zero_))
+    torch.cuda.empty_cache()
+    # 3e. the precision modes' kernels (phase 20 drives them): K1 in f32, KM
+    # in its mixed modes, KB
+    precision_rows = _precision_kernels(head, scale, sv2d, sv3d, rng,
+                                        flush_buf.zero_)
     torch.cuda.empty_cache()
     # the list holds every hierarchy: drop it, so that the solver a later
     # phase deletes is freed and each sweep's peak is its own
@@ -1946,6 +2294,12 @@ def main(kernels_only=False):
     _adjoint_phase(make, parser)
     torch.cuda.empty_cache()
 
+    # 20. the precision modes at the bench config and the 3D scale row
+    precision_launches = _precision_phase(
+        make, lambda: get_solver(scale_args, ThreeDimLidDrivenCavityProblem(
+            scale_args.baseN), device=dev), here)
+    torch.cuda.empty_cache()
+
     sources = {"K1": os.path.relpath(kernels.SOURCE, here),
                "KM": os.path.relpath(kernels.LEVEL_SOURCE, here)}
     sources["KA"] = sources["KG"] = sources["KM"]
@@ -1982,6 +2336,26 @@ def main(kernels_only=False):
             "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_dev_ms"]})
+    # the precision kernels' rows, with phase 20's launches of each kernel
+    # and mode
+    for r in precision_rows:
+        key = r["kernel"]
+        use = key.split()[0]  # K1, KM or KB
+        if use == "K1":
+            name = "gather_gemv_scatter f32 %s kernel (%s)" % (
+                r["kernel_path"], r["name"])
+        elif use == "KB":
+            name = "level_operator gamma-split grad-div term (%s)" % r["name"]
+        else:
+            name = "level_operator apply, mixed precision (%s)" % r["name"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": sources["K1" if use == "K1" else "KM"],
+            "replaces": REPLACES[use],
+            "launches": precision_launches[key],
+            "max_abs_err": r["abs_err"], "ms": r["dev_ms"],
+            "plain_ms": r["plain_dev_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_dev_ms"]})
     for kernel in KERNEL_OF_PATH.values():
         if not any(" %s kernel " % kernel in e["name"] for e in entries):
             raise AssertionError("the main path launched no table through "

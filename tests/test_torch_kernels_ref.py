@@ -299,8 +299,11 @@ def test_table_needs_a_column_and_a_known_use():
     x = torch.ones(3, dtype=torch.float64)
     with pytest.raises(ValueError, match="shape"):
         op(torch.ones((1, 2, 2), dtype=torch.float64), x)
-    with pytest.raises(ValueError, match="f64"):
+    # f64 or f32 (the f32 smoother), A, x and passthrough of one dtype
+    with pytest.raises(ValueError, match="x must be torch.float32"):
         op(torch.ones((1, 3, 3), dtype=torch.float32), x)
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        op(torch.ones((1, 3, 3), dtype=torch.float16), x.half())
 
 
 @pytest.mark.parametrize("which", ["in_mask", "out_mask"])

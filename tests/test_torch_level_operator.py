@@ -358,8 +358,11 @@ def test_arguments_are_checked(solvers):
     vals = op.assemble(T, F)
     with pytest.raises(ValueError, match="shape"):
         op(vals, torch.zeros(op.n + 1, dtype=torch.float64))
-    with pytest.raises(ValueError, match="f64"):
-        op(vals.float(), torch.zeros(op.n, dtype=torch.float32))
+    # f64 or f32 values and vectors (the precision modes), nothing else
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        op(vals.half(), torch.zeros(op.n, dtype=torch.float32))
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        op(vals, torch.zeros(op.n, dtype=torch.float16))
     ldc = solvers["ldc2d"].vmg.level_ops[1]
     with pytest.raises(ValueError, match="facet tensors"):
         ldc.assemble(*_blocks(solvers["ldc2d"], 1, 61)[:1], F)
