@@ -31,8 +31,8 @@ Against the JAX package, same seeded inputs through both:
   f32, the JAX package each cell's tensor);
 * K1's f32 plain version against the Pallas kernel's plain-XLA form
   (``apply_transposed_xla``, f32, deleted in aaee1ce) at 1e-5;
-* FGMRES on f32 vectors keeps every scalar f32 and matches the JAX
-  package's f32 FGMRES at 1e-5.
+* FGMRES and Chebyshev on f32 vectors keep every scalar f32 and match
+  the JAX package's f32 recurrences at 1e-5.
 """
 
 import numpy as np
@@ -474,6 +474,16 @@ def test_fgmres_follows_the_vector_dtype():
     x, info = fgmres(lambda v: (Mt * v[None, :]).sum(1), torch.as_tensor(b),
                      rtol=1e-5, atol=0.0, maxit=50, restart=10)
     assert x.dtype == F32 and info["converged"]
+    # and Chebyshev (the grad-div harness's smoother) against the JAX one
+    from alfi_torch.solvers.krylov import chebyshev
+    from alfi_tpu.solvers.krylov import chebyshev as jchebyshev
+
+    y = chebyshev(lambda v: (Mt * v[None, :]).sum(1), torch.as_tensor(b),
+                  lambda v: v / Dt, maxit=4, lmax=5.0)
+    yj = jchebyshev(lambda v: (Mj * v[None, :]).sum(1), jnp.asarray(b),
+                    lambda v: v / Dj, maxit=4, lmax=5.0)
+    assert y.dtype == F32 and yj.dtype == jnp.float32
+    assert _rel(y, yj) < 1e-5
 
 
 def test_transfers_follow_the_vector_dtype():
