@@ -108,12 +108,17 @@ def set_mg_smooth_dtype(dtype):
 
 
 #: the cycle-state entries kept in f64 under an f32 cycle when
-#: ALFI_TORCH_MG_F64_KEYS is unset.  The Schoeberl transfer's patch solve
-#: is an explicit inverse here (a LU solve in the JAX package on the CPU):
-#: rounded to f32, its entries of size 1/nu carry an error of eps32 / nu
-#: into a solution of size 1/gamma, since the transfer solves for the
-#: grad-div range; the SUPG ladder at ldc2d baseN=8 nref=1 then took 535
-#: Krylov at Re 100 and did not converge at Re 1000 (20, 52 with it f64).
+#: ALFI_TORCH_MG_F64_KEYS is unset: a departure from the JAX package,
+#: whose ALFI_TPU_MG_F64_KEYS keeps none.  The Schoeberl transfer's patch
+#: solve is an explicit inverse here (a LU solve in the JAX package on the
+#: CPU): rounded to f32, its entries of size 1/nu carry an error of
+#: eps32 / nu into a solution of size 1/gamma, since the transfer solves
+#: for the grad-div range.  In f32, one cycle at nu = 0.02 departs 6.1e-2
+#: from the f64 cycle against the JAX package's 9.7e-4
+#: (tests/test_torch_precision.py), and the SUPG ladder at ldc2d baseN=8
+#: nref=1 took 535 Krylov at Re 100 and did not converge at Re 1000 (20,
+#: 52 with it f64).  ALFI_TORCH_MG_F64_KEYS set but empty runs the
+#: Schoeberl K1 tables in f32 as the JAX package does.
 DEFAULT_F64_KEYS = frozenset({"schoeberl"})
 
 

@@ -301,8 +301,8 @@ class GatherGemvScatter:
         self.in_keep = None if in_keep is None else dev(in_keep)
         self.out_keep = None if out_keep is None else dev(out_keep)
         #: this table's kernel launches since the last
-        #: reset_launch_counts()
-        self.launched = 0
+        #: reset_launch_counts(), and of those the f32 ones
+        self.launched = self.f32_launched = 0
         GatherGemvScatter._tables_alive.add(self)
         self._launch = None
         #: kernel choice on a CUDA device (see the class docstring)
@@ -351,6 +351,7 @@ class GatherGemvScatter:
         GatherGemvScatter.launches[self.use] += 1
         if A.dtype == torch.float32:
             GatherGemvScatter.f32_launches[self.use] += 1
+            self.f32_launched += 1
         self.launched += 1
         return out
 
@@ -551,6 +552,9 @@ class MergedLevelOperator:
         #: log2 of KM's lanes per node row
         self.lanes_log2 = merged_lanes_log2(pattern.row_lengths, d)
         self._km_launched = 0
+        #: this table's KM launches in each mixed mode since the last
+        #: reset_launch_counts()
+        self.mode_launched = dict.fromkeys(self.mode_launches, 0)
         MergedLevelOperator._tables_alive.add(self)
         self._lib = None
         if self.device.type == "cuda":
@@ -601,6 +605,7 @@ class MergedLevelOperator:
         if vals.dtype != torch.float64 or x.dtype != torch.float64:
             mode = _MODE[vals.dtype, x.dtype]
             MergedLevelOperator.mode_launches[mode] += 1
+            self.mode_launched[mode] += 1
         self._km_launched += 1
         return out
 
@@ -674,7 +679,9 @@ class GradDivTerm:
         #: the plain version's table: masked entries point at n (a zero)
         self.pidx = dev(np.where(live, rows, self.n))
         self._scatter = None
-        self.launched = 0
+        #: this term's launches since the last reset_launch_counts(), and
+        #: of those the ones on f32 vectors
+        self.launched = self.f32_launched = 0
         GradDivTerm._tables_alive.add(self)
         self._lib = None
         if self.device.type == "cuda":
@@ -715,6 +722,8 @@ class GradDivTerm:
                                "launch" % err)
         GradDivTerm.launches["KB"] += 1
         self.launched += 1
+        if x.dtype == torch.float32:
+            self.f32_launched += 1
         return out
 
     def plain(self, B, gamma, x, y=None):
@@ -723,12 +732,16 @@ class GradDivTerm:
         from .fem.scatter import ScatterAdd
 
         if self._scatter is None:
-            self._scatter = ScatterAdd(self.pidx, self.n + 1)
+            # the live entries only: a scatter table padded to the masked
+            # entries' count would hold n times that many slots
+            self._live = (self.pidx < self.n).reshape(-1)
+            self._scatter = ScatterAdd(self.pidx.reshape(-1)[self._live],
+                                       self.n)
         x64 = x.to(torch.float64)
         vloc = torch.cat([x64, x64.new_zeros(1)])[self.pidx]
         dq = gamma * torch.einsum("cip,ci->cp", B, vloc)
-        acc = self._scatter(torch.einsum("cip,cp->ci", B, dq).reshape(-1))
-        acc = acc[:self.n]
+        acc = self._scatter(
+            torch.einsum("cip,cp->ci", B, dq).reshape(-1)[self._live])
         if y is not None:
             acc = y.to(torch.float64) + acc
         return acc.to(x.dtype)
@@ -740,17 +753,18 @@ def reset_launch_counts():
         GatherGemvScatter.launches[key] = 0
         GatherGemvScatter.f32_launches[key] = 0
     for table in GatherGemvScatter._tables_alive:
-        table.launched = 0
+        table.launched = table.f32_launched = 0
     for key in MergedLevelOperator.launches:
         MergedLevelOperator.launches[key] = 0
     for key in MergedLevelOperator.mode_launches:
         MergedLevelOperator.mode_launches[key] = 0
     for table in MergedLevelOperator._tables_alive:
         table._km_launched = 0
+        table.mode_launched = dict.fromkeys(table.mode_launched, 0)
     for key in MapAssembly.launches:
         MapAssembly.launches[key] = 0
     for table in MapAssembly._tables_alive:
         table.launched = 0
     GradDivTerm.launches["KB"] = 0
     for table in GradDivTerm._tables_alive:
-        table.launched = 0
+        table.launched = table.f32_launched = 0

@@ -322,6 +322,17 @@ class VelocityMG:
                 self.levels[l].form.graddiv_factors().contiguous())
         return self._gd_factors[l]
 
+    def _split_diagonal(self, l, M, gamma):
+        """The Jacobi diagonal of level l's gamma-split operator: that of
+        the merged f64 values M of the gamma-free part, plus gamma times
+        the diagonal of sum_c R_c^T B_c B_c^T R_c (one scatter of the
+        factors' squares); 1 on masked dofs."""
+        lev = self.levels[l]
+        gd = lev.sum_cells((self.gd_factors(l) ** 2).sum(dim=2))
+        return torch.where(lev.keep,
+                           self.level_ops[l].diagonal(M) + gamma * gd,
+                           torch.ones_like(gd))
+
     def _check_tf32(self):
         """An f32 mode on the card must not round its plain f32 products
         (transfers, Gram-Schmidt dots) to TF32."""
@@ -482,18 +493,19 @@ class VelocityMG:
             if self.cdt != real_dtype:
                 store = (real_dtype if keys & {"tensors", "ftensors",
                                                "level_ops"} else self.cdt)
-            level_ops = [None] + [
-                {"M": self.level_assemble(l, M_els[l], ftensors[l]).to(store),
-                 "gamma": params["gamma"]}
-                for l in range(1, self.nlevels)]
+            level_ops, diags = [None], [None]
+            for l in range(1, self.nlevels):
+                M = self.level_assemble(l, M_els[l], ftensors[l])
+                if self.smoother == "jacobi":
+                    diags.append(self._split_diagonal(l, M, params["gamma"]))
+                level_ops.append({"M": M.to(store), "gamma": params["gamma"]})
+            M = None  # the f64 values: not kept past their narrowing
         if self.smoother == "jacobi":
-            # the operator diagonals, read off the merged f64 values (of
-            # the whole operator, the grad-div part included)
+            # the operator diagonals, read off the merged f64 values (split:
+            # before they are narrowed, with the grad-div part's added)
             patch_lufacs = [
-                self.level_ops[l].diagonal(
-                    level_ops[l] if not self.split
-                    else self.level_assemble(l, tensors[l], ftensors[l])
-                ).reshape(-1, self.d)
+                (self.level_ops[l].diagonal(level_ops[l]) if not self.split
+                 else diags[l]).reshape(-1, self.d)
                 for l in range(1, self.nlevels)]
         if self.cdt != real_dtype:
             if "patch_lufacs" not in keys:

@@ -57,16 +57,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``index_put_(accumulate=True)`` of the same contributions as the
    library call; KM on the AMG fine operator is 3b's "level L2" table
    (the same pattern, checked), not timed again;
-3e. the precision modes' kernels (phase 20 drives them) against their
-   plain versions: K1 in f32 at the 2D L2 smoother table (4,225 x 14,
-   out-masked), the 3D L2 table (4,913 x 189) and the SV 3D L1 table
-   (125 x 1,590), 1e-5 (f32 sums); KM in its three mixed modes (f64
-   values on f32 vectors, f32 values on f64 vectors, f32 on f32) at the
-   2D L2 and 3D L2 level patterns, 1e-6, 1e-13 and 1e-5; KB, the
-   gamma-split grad-div term, at the 2D L2 and SV 2D L2 levels on f64
-   and f32 vectors, 1e-13 and 1e-6; two launches bitwise equal; device
-   times, bounds, plain versions and cuSPARSE in the same (KM: the
-   promoted) dtype, for KB on gamma G as CSR;
+3e. the precision modes' kernels against their plain versions at every
+   table phase 20 drives them at: K1 in f32 at the bench config's
+   smoother tables (out-masked) and Schoeberl tables, levels 2 and 1, and
+   the 3D scale row's smoother tables, levels 2 and 1 (4,913 x 189 at
+   L2), 1e-5 (f32 sums); KM in its three mixed modes (f64 values on f32
+   vectors, f32 values on f64 vectors, f32 on f32) at levels 2 and 1 of
+   both, 1e-6, 1e-13 and 1e-5; KB, the gamma-split grad-div term, masked
+   at the bench config's levels 2 and 1 on f64 and f32 vectors, raw (the
+   Schoeberl transfers') there on f32 vectors, masked at the 3D scale
+   row's levels 2 and 1 on f64 vectors, 1e-13 and 1e-6; besides, K1 f32
+   at the SV 3D L1 table (125 x 1,590) and KB at SV 2D L2, shapes phase
+   20 does not run; two launches bitwise equal; device times, bounds,
+   plain versions and cuSPARSE in the same (KM: the promoted) dtype, for
+   KB on gamma G as CSR;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -184,14 +188,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    100, each held to its JAX CPU log
    (results/torch_h100/iters_ldc2d_nref2_re100_<mode>_jax_cpu.log) by
    phase 7's rule and to the JAX package's gates against the f64 control
-   (dc32 and store32 c64 + 1, the f32 cycle 1.10 c64 + 1, per Re; where
-   the JAX package's own logs, f64 in iters_ldc2d_nref2_re100_jax_cpu.log,
-   miss a gate, its mode's count is the bound), with seconds per Re and
-   peak device memory beside f64; (c) the 3D
-   scale row in f64, dc32 and store32, Re 1 -> 10 -> 100, every Re
-   converged, with counts, seconds, peak memory and the memory each
-   built solver holds; K1 in f32, KM in each mixed mode and KB must have
-   launched (their rows' launches are phase 20's);
+   (dc32 and store32 c64 + 1, the f32 cycle 1.10 c64 + 1, per Re; only
+   at the f32 cycle's Re 100, where the JAX package's own logs, f64 in
+   iters_ldc2d_nref2_re100_jax_cpu.log, miss the gate, its mode's count
+   is the bound, and a miss anywhere else fails), with seconds per Re and
+   peak device memory beside f64; (c) the 3D scale row in f64, dc32 and
+   store32, Re 1 -> 10 -> 100, every Re converged, with counts, seconds,
+   peak memory and the memory each built solver holds; (d) the f32 cycle
+   with ALFI_TORCH_MG_F64_KEYS empty (the Schoeberl inverses in f32 too),
+   the bench config warm, Re 1 -> 10, held as (b); K1 in f32 (on the
+   Schoeberl tables too), KM in each mixed mode and KB must have
+   launched; each of phase 3e's rows takes its table's launches here;
 
 then print the kernel table as one JSON line (every K1 table of phases
 3 to 3c in the variant its main path calls, and KM and KA of every level
@@ -350,10 +357,20 @@ BASELINE_MAXIT = 500
 #: Krylov <= scale * c64 + plus per Re (tests/test_mixed_cycle.py)
 PRECISION_GATES = {"dc32": (1.0, 1), "store32": (1.0, 1),
                    "cycle32": (1.10, 1)}
+#: the (mode, Re) where the JAX package's own CPU logs of the bench config
+#: miss their gate, and only there is the port held to the JAX mode's
+#: count instead: its f32 cycle at Re 100 (12 Krylov against its f64 run's
+#: 9 > 1.10 * 9 + 1).  The gates come from the SUPG ladder at ldc2d
+#: baseN=8 nref=1 (tests/test_mixed_cycle.py), where both packages meet them
+PRECISION_JAX_MISSES = {("cycle32", 100)}
+#: the Re of the f32 cycle with its Schoeberl inverses in f32 too: at Re
+#: 100 that cycle did not finish its solve in 25 minutes on a CPU, where
+#: the JAX package's takes 12/3 (the port's explicit inverses rounded to
+#: f32 against the JAX package's f32 LU factors; alfi_torch/config.py
+#: DEFAULT_F64_KEYS)
+PRECISION_F32_SCHOEBERL_RES = [1, 10]
 #: and the JAX package's CPU logs of the bench config in each mode and in
-#: f64.  At Re 100 the JAX package's own f32 cycle misses its gate there
-#: (12 Krylov against its f64 run's 9 > 1.10 * 9 + 1): where the JAX logs
-#: miss a gate, the port is held to the JAX mode's count instead
+#: f64
 PRECISION_LOGS = {
     mode: os.path.join("results", "torch_h100",
                        "iters_ldc2d_nref2_re100_%s_jax_cpu.log" % mode)
@@ -1686,22 +1703,35 @@ def _graddiv_library(term, B, gamma):
                                    (term.n, term.n))
 
 
-def _precision_kernels(head, scale, sv2d, sv3d, rng, flush):
-    """Phase 3e: K1 in f32 at the 2D L2, 3D L2 and SV 3D L1 tables, KM in
-    its three mixed modes at the 2D L2 and 3D L2 level patterns, and KB at
-    the 2D L2 and SV 2D L2 levels, each against its plain version on the
-    card, with device times, bounds and library calls (cuSPARSE in the
-    same or the promoted dtype).  Returns the result rows."""
+def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
+    """Phase 3e: the precision modes' kernels at every table phase 20
+    drives them at, each against its plain version on the card, with
+    device times, bounds and library calls (cuSPARSE in the same or the
+    promoted dtype): K1 in f32 at the bench config's smoother and
+    Schoeberl tables (levels 2 and 1) and the 3D scale row's smoother
+    tables (levels 2 and 1); KM in its three mixed modes at both applied
+    levels of each; KB on f64 and f32 vectors at the bench config's
+    masked levels 2 and 1 and on f32 vectors at its raw Schoeberl
+    operators (the f32 cycle's), on f64 vectors at the 3D scale row's
+    masked levels 2 and 1.  Besides, as the Scott-Vogelius shapes, which
+    phase 20 does not run: K1 f32 at SV 3D L1, KB at SV 2D L2.  Each row's
+    ``key`` (configuration, kernel and mode, level) names its table's
+    launches in phase 20.  Returns the result rows."""
     import torch
 
     from alfi_torch.kernels import GatherGemvScatter, GradDivTerm
 
     f32, f64 = torch.float32, torch.float64
     rows = []
-    # K1 f32: the main path's tables (the smoother's, out-masked) in f32
-    for name, op in (("K1 f32 smoother L2", head.vmg.patch_solvers[1][1]),
-                     ("K1 f32 3D L2", scale.vmg.patch_solvers[-1][1]),
-                     ("K1 f32 SV 3D L1", sv3d.vmg.patch_solvers[-1][1])):
+    # K1 f32: the smoothers' tables (out-masked) and the Schoeberl ones
+    k1 = [("bench", "smoother", l, bench.vmg.patch_solvers[l - 1][1], "2D")
+          for l in (2, 1)]
+    k1 += [("bench", "schoeberl", t.l + 1, t.papply, "2D")
+           for t in reversed(bench.vmg.schoeberl)]
+    k1 += [("scale", "smoother", l, scale.vmg.patch_solvers[l - 1][1], "3D")
+           for l in (2, 1)]
+    k1 += [("sv3d", "smoother", 1, sv3d.vmg.patch_solvers[-1][1], "SV 3D")]
+    for config, table, l, op, tag in k1:
         nb, m, _ = op.ashape
         dev = op.device
         A = torch.as_tensor(rng.standard_normal((nb, m, m)), device=dev,
@@ -1715,52 +1745,68 @@ def _precision_kernels(head, scale, sv2d, sv3d, rng, flush):
         del bare
         parts = _bound_bytes(op, itemsize=4)
         r = _precision_row(
-            "%s (%d x %d, %s)" % (name, nb, m, KERNEL_OF_PATH[
-                op.kernel_path()]), "K1 f32", lambda: op(A, x, *args),
+            "K1 f32 %s %s L%d (%d x %d, %s)" % (
+                table, tag, l, nb, m, KERNEL_OF_PATH[op.kernel_path()]),
+            "K1 f32", lambda: op(A, x, *args),
             lambda: op.plain(A, x, *args), lambda: lib @ x, 1e-5,
             _bound_of(parts, 2.0 * parts["A"] / 4, F32_FLOP_PER_S), flush,
             KERNEL_NAME)
         r["kernel_path"] = KERNEL_OF_PATH[op.kernel_path()]
+        r["key"] = (config, "K1 f32 " + table, l)
         rows.append(r)
         del A, lib
         torch.cuda.empty_cache()
     # KM in its three mixed modes
-    for lname, vmg, l in (("2D L2", head.vmg, 2), ("3D L2", scale.vmg, 2)):
-        op = vmg.level_ops[l]
-        dev = op.device
-        vals = torch.as_tensor(rng.standard_normal(op.vshape), device=dev)
-        x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
-        for vt, xt, tol in ((f64, f32, 1e-6), (f32, f64, 1e-13),
-                            (f32, f32, 1e-5)):
-            v, xx = vals.to(vt), x.to(xt)
-            ct = torch.promote_types(vt, xt)
-            lib = _merged_library_operator(op, v.to(ct))
-            xc = xx.to(ct)
-            parts = _merged_bound_bytes(op, vbytes=v.element_size(),
-                                        xbytes=xx.element_size())
-            mode = "%s/%s" % tuple("f32" if t == f32 else "f64"
-                                   for t in (vt, xt))
-            rows.append(_precision_row(
-                "KM %s %s (%d blocks of %dx%d)" % (mode, lname,
-                                                   op.pattern.nnzb, op.d,
-                                                   op.d),
-                "KM " + mode, lambda: op(v, xx), lambda: op.plain(v, xx),
-                lambda: lib @ xc, tol,
-                _bound_of(parts, 2.0 * op.d * op.d * op.pattern.nnzb,
-                          F32_FLOP_PER_S if ct == f32 else F64_FLOP_PER_S),
-                flush, KM_NAME))
-            del lib
-        del vals
-        torch.cuda.empty_cache()
-    # KB, the gamma-split grad-div term, f64 arithmetic
-    for lname, vmg, l in (("2D L2", head.vmg, 2), ("SV 2D L2", sv2d.vmg, 2)):
+    for config, vmg, tag in (("bench", bench.vmg, "2D"),
+                             ("scale", scale.vmg, "3D")):
+        for l in (2, 1):
+            op = vmg.level_ops[l]
+            dev = op.device
+            vals = torch.as_tensor(rng.standard_normal(op.vshape),
+                                   device=dev)
+            x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
+            for vt, xt, tol in ((f64, f32, 1e-6), (f32, f64, 1e-13),
+                                (f32, f32, 1e-5)):
+                v, xx = vals.to(vt), x.to(xt)
+                ct = torch.promote_types(vt, xt)
+                lib = _merged_library_operator(op, v.to(ct))
+                xc = xx.to(ct)
+                parts = _merged_bound_bytes(op, vbytes=v.element_size(),
+                                            xbytes=xx.element_size())
+                mode = "%s/%s" % tuple("f32" if t == f32 else "f64"
+                                       for t in (vt, xt))
+                r = _precision_row(
+                    "KM %s %s L%d (%d blocks of %dx%d)" % (
+                        mode, tag, l, op.pattern.nnzb, op.d, op.d),
+                    "KM " + mode, lambda: op(v, xx), lambda: op.plain(v, xx),
+                    lambda: lib @ xc, tol,
+                    _bound_of(parts, 2.0 * op.d * op.d * op.pattern.nnzb,
+                              F32_FLOP_PER_S if ct == f32
+                              else F64_FLOP_PER_S),
+                    flush, KM_NAME)
+                r["key"] = (config, "KM " + mode, l)
+                rows.append(r)
+                del lib
+            del vals
+            torch.cuda.empty_cache()
+    # KB, the gamma-split grad-div term, f64 arithmetic: masked (the level
+    # operators') and raw (the Schoeberl transfers')
+    kb = [("bench", "2D", l, True, (f64, f32)) for l in (2, 1)]
+    kb += [("bench", "2D", l, False, (f32,)) for l in (2, 1)]
+    kb += [("scale", "3D", l, True, (f64,)) for l in (2, 1)]
+    kb += [("sv2d", "SV 2D", 2, True, (f64, f32))]
+    solvers = {"bench": bench, "scale": scale, "sv2d": sv2d}
+    for config, tag, l, masked, dtypes in kb:
+        vmg = solvers[config].vmg
         lev = vmg.levels[l]
         dev = vmg.device
         term = GradDivTerm(lev.rows.cpu().numpy(), lev.V.ndof * vmg.d,
-                           keep=lev.mask_flat, device=dev)
+                           keep=lev.mask_flat if masked else None,
+                           device=dev)
         B = vmg.gd_factors(l)
         lib = _graddiv_library(term, B, 1e4)
-        for xt, tol in ((f64, 1e-13), (f32, 1e-6)):
+        for xt in dtypes:
+            tol = 1e-13 if xt == f64 else 1e-6
             x = torch.as_tensor(rng.standard_normal(term.n), device=dev,
                                 dtype=xt)
             y = torch.as_tensor(rng.standard_normal(term.n), device=dev,
@@ -1774,23 +1820,50 @@ def _precision_kernels(head, scale, sv2d, sv3d, rng, flush):
                      "x": itemsize * int(torch.unique(
                          term.gidx[live]).numel()),
                      "y": itemsize * term.n, "out": itemsize * term.n}
-            rows.append(_precision_row(
-                "KB %s %s (%d cells x %d x q=%d)" % (
-                    "f32" if xt == f32 else "f64", lname, nc, nld, q), "KB",
+            dt = "f32" if xt == f32 else "f64"
+            r = _precision_row(
+                "KB %s %s %s L%d (%d cells x %d x q=%d)" % (
+                    dt, "masked" if masked else "raw (Schoeberl)", tag, l,
+                    nc, nld, q), "KB",
                 lambda: term(B, 1e4, x, y), lambda: term.plain(B, 1e4, x, y),
                 lambda: yl + lib @ xl, tol,
                 _bound_of(parts, 4.0 * nc * nld * q, F64_FLOP_PER_S), flush,
-                None))
+                None)
+            r["key"] = (config, "KB %s%s" % ("" if masked else "schoeberl ",
+                                             dt), l)
+            rows.append(r)
         del lib, term
         torch.cuda.empty_cache()
     return rows
+
+
+def _precision_table_launches(vmg):
+    """{(kernel and mode, level): launches} of a hierarchy's precision
+    tables since the last reset: K1 in f32 on its smoother and Schoeberl
+    tables, KM per mixed mode, KB on f64 and f32 vectors, masked and on the
+    raw Schoeberl operators (the same keys as phase 3e's rows)."""
+    out = {}
+    for l in range(1, vmg.nlevels):
+        out["K1 f32 smoother", l] = vmg.patch_solvers[l - 1][1].f32_launched
+        for mode, n in vmg.level_ops[l].mode_launched.items():
+            out["KM " + mode, l] = n
+        term = vmg.graddiv_terms[l]
+        out["KB f32", l] = 0 if term is None else term.f32_launched
+        out["KB f64", l] = 0 if term is None else (term.launched
+                                                   - term.f32_launched)
+    for t in vmg.schoeberl or ():
+        out["K1 f32 schoeberl", t.l + 1] = t.papply.f32_launched
+        out["KB schoeberl f32", t.l + 1] = (0 if t._gd_term is None
+                                            else t._gd_term.f32_launched)
+    return out
 
 
 def _precision_sweep(label, build, res, warm):
     """Build a solver (the precision switches already set), optionally
     warm it with one Re-1 solve from zero, then solve ``res`` from zero;
     returns (counts, seconds per Re, peak device memory above what was
-    allocated before the build, bytes the built solver holds)."""
+    allocated before the build, bytes the built solver holds, the
+    precision tables' launches as _precision_table_launches gives them)."""
     import gc
 
     import torch
@@ -1820,10 +1893,11 @@ def _precision_sweep(label, build, res, warm):
           flush=True)
     counts = [(r[1], r[2]) for r in rows]
     secs = [r[3] for r in rows]
+    tables = _precision_table_launches(vmg)
     del solver, vmg
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, secs, peak, held
+    return counts, secs, peak, held, tables
 
 
 def _precision_phase(make, scale_build, here):
@@ -1831,15 +1905,53 @@ def _precision_phase(make, scale_build, here):
     -> 10 -> 100: each mode's counts against its JAX CPU log (the same
     Newton counts, Krylov within one per Newton step) and against the f64
     control by the JAX package's gates (dc32 and store32 c64 + 1, the f32
-    cycle 1.10 c64 + 1, per Re; where the JAX package's own logs miss the
-    gate, its mode's Krylov count is the bound); (c) the 3D scale row in
-    f64, dc32 and
-    store32, Re 1 -> 10 -> 100, cold, every Re converged.  The launch
-    counts are zeroed before (b) and read after (c); K1 in f32, KM in each
-    mixed mode and KB must have launched.  Returns the counts."""
+    cycle 1.10 c64 + 1, per Re; PRECISION_JAX_MISSES); (c) the 3D scale
+    row in f64, dc32 and store32, Re 1 -> 10 -> 100, cold, every Re
+    converged; (d) the f32 cycle with the Schoeberl inverses in f32 too
+    (ALFI_TORCH_MG_F64_KEYS empty, the JAX package's default), the bench
+    config warm to PRECISION_F32_SCHOEBERL_RES, held as (b).  The launch
+    counts are zeroed before (b) and read after (d); K1 in f32, KM in each
+    mixed mode and KB must have launched, K1 in f32 on the Schoeberl
+    tables too.  Returns {(configuration, kernel and mode, level):
+    launches} of phase 3e's rows' tables."""
     from alfi_torch import kernels
 
+    def hold(mode, res, counts, c64, want, j64):
+        for re, (k, n), (kj, nj), (k64, _), (kj64, _) in zip(
+                res, counts, want, c64, j64):
+            if not (n == nj and k <= kj + nj):
+                raise AssertionError(
+                    "precision %s Re=%s: %d/%d against the JAX CPU log's "
+                    "%d/%d" % (mode, re, k, n, kj, nj))
+            scale_k, plus = PRECISION_GATES[mode]
+            bound = scale_k * k64 + plus
+            missed = kj > scale_k * kj64 + plus
+            if missed != ((mode, re) in PRECISION_JAX_MISSES):
+                raise AssertionError(
+                    "precision %s Re=%s: the JAX CPU logs %s the gate (%d "
+                    "Krylov against their f64 %d), PRECISION_JAX_MISSES "
+                    "says otherwise" % (mode, re, "miss" if missed
+                                        else "meet", kj, kj64))
+            if missed:
+                print("precision %s Re=%s: the JAX package misses the gate "
+                      "itself (%d Krylov against its f64 %d): held to its "
+                      "%d" % (mode, re, kj, kj64, kj), flush=True)
+                bound = kj
+            if not k <= bound:
+                raise AssertionError(
+                    "precision %s Re=%s: %d Krylov against the f64 "
+                    "control's %d (gate %.2f c64 + %d)"
+                    % (mode, re, k, k64, scale_k, plus))
+
+    launched = {}
+
+    def count(config, tables):
+        for (kind, l), n in tables.items():
+            key = (config, kind, l)
+            launched[key] = launched.get(key, 0) + n
+
     kernels.reset_launch_counts()
+    keys_env = os.environ.get("ALFI_TORCH_MG_F64_KEYS")
     try:
         bench = {}
         for mode in ("f64",) + tuple(PRECISION_GATES):
@@ -1847,10 +1959,11 @@ def _precision_phase(make, scale_build, here):
             bench[mode] = _precision_sweep(
                 "precision bench %s" % mode, lambda: make(16, 2), BENCH_RES,
                 warm=True)
+            count("bench", bench[mode][4])
         c64 = bench["f64"][0]
         j64 = _log_solves(os.path.join(here, PRECISION_LOGS["f64"]))
-        for mode, (scale_k, plus) in PRECISION_GATES.items():
-            counts, secs, peak, _ = bench[mode]
+        for mode in PRECISION_GATES:
+            counts, secs, peak = bench[mode][:3]
             want = _log_solves(os.path.join(here, PRECISION_LOGS[mode]))
             print("precision bench %s: Krylov/Newton %s (JAX CPU log %s, "
                   "f64 control %s); s per Re %s (f64 %s); peak %.3f GB (f64 "
@@ -1858,31 +1971,16 @@ def _precision_phase(make, scale_build, here):
                              ", ".join("%.3f" % t for t in secs),
                              ", ".join("%.3f" % t for t in bench["f64"][1]),
                              peak / 1e9, bench["f64"][2] / 1e9), flush=True)
-            for re, (k, n), (kj, nj), (k64, _), (kj64, _) in zip(
-                    BENCH_RES, counts, want, c64, j64):
-                if not (n == nj and k <= kj + nj):
-                    raise AssertionError(
-                        "precision %s Re=%s: %d/%d against the JAX CPU "
-                        "log's %d/%d" % (mode, re, k, n, kj, nj))
-                bound = scale_k * k64 + plus
-                if kj > scale_k * kj64 + plus:
-                    print("precision %s Re=%s: the JAX package misses the "
-                          "gate itself (%d Krylov against its f64 %d): held "
-                          "to its %d" % (mode, re, kj, kj64, kj), flush=True)
-                    bound = max(bound, kj)
-                if not k <= bound:
-                    raise AssertionError(
-                        "precision %s Re=%s: %d Krylov against the f64 "
-                        "control's %d (gate %.2f c64 + %d)"
-                        % (mode, re, k, k64, scale_k, plus))
+            hold(mode, BENCH_RES, counts, c64, want, j64)
         scale = {}
         for mode in ("f64", "dc32", "store32"):
             _set_precision(mode)
             scale[mode] = _precision_sweep("precision 3D scale row %s" % mode,
                                            scale_build, BENCH_RES,
                                            warm=False)
+            count("scale", scale[mode][4])
         for mode in ("dc32", "store32"):
-            counts, secs, peak, held = scale[mode]
+            counts, secs, peak, held, _ = scale[mode]
             print("precision 3D scale row %s: Krylov/Newton %s (f64 %s); s "
                   "per Re %s (f64 %s); peak %.3f GB (f64 %.3f); solver holds "
                   "%.3f GB (f64 %.3f)"
@@ -1891,17 +1989,39 @@ def _precision_phase(make, scale_build, here):
                      ", ".join("%.3f" % t for t in scale["f64"][1]),
                      peak / 1e9, scale["f64"][2] / 1e9, held / 1e9,
                      scale["f64"][3] / 1e9), flush=True)
+        _set_precision("cycle32")
+        os.environ["ALFI_TORCH_MG_F64_KEYS"] = ""
+        res = PRECISION_F32_SCHOEBERL_RES
+        counts, secs, peak, _, tables = _precision_sweep(
+            "precision bench cycle32, Schoeberl inverses f32", lambda: make(
+                16, 2), res, warm=True)
+        count("bench", tables)
+        want = _log_solves(os.path.join(here, PRECISION_LOGS["cycle32"]))
+        print("precision bench cycle32 with ALFI_TORCH_MG_F64_KEYS empty: "
+              "Krylov/Newton %s (JAX CPU log %s, f64 control %s); s per Re "
+              "%s" % (counts, want[:len(res)], c64[:len(res)],
+                      ", ".join("%.3f" % t for t in secs)), flush=True)
+        hold("cycle32", res, counts, c64, want, j64)
     finally:
         _set_precision("f64")
+        if keys_env is None:
+            os.environ.pop("ALFI_TORCH_MG_F64_KEYS", None)
+        else:
+            os.environ["ALFI_TORCH_MG_F64_KEYS"] = keys_env
     out = {"K1 f32": kernels.GatherGemvScatter.f32_launches["K1"]}
     out.update(("KM " + k, v)
                for k, v in kernels.MergedLevelOperator.mode_launches.items())
     out["KB"] = kernels.GradDivTerm.launches["KB"]
+    out["K1 f32 schoeberl"] = sum(n for (c, kind, _), n in launched.items()
+                                  if kind == "K1 f32 schoeberl")
     print("precision phase kernel launches: %s" % out, flush=True)
     for key, n in out.items():
         if n <= 0:
             raise AssertionError("precision phase: %s never launched" % key)
-    return out
+    print("precision phase launches per table: %s" % ", ".join(
+        "%s %s L%d %d" % (k + (n,)) for k, n in sorted(launched.items())),
+        flush=True)
+    return launched
 
 
 def main(kernels_only=False):
@@ -2076,7 +2196,7 @@ def main(kernels_only=False):
     torch.cuda.empty_cache()
     # 3e. the precision modes' kernels (phase 20 drives them): K1 in f32, KM
     # in its mixed modes, KB
-    precision_rows = _precision_kernels(head, scale, sv2d, sv3d, rng,
+    precision_rows = _precision_kernels(bench, scale, sv2d, sv3d, rng,
                                         flush_buf.zero_)
     torch.cuda.empty_cache()
     # the list holds every hierarchy: drop it, so that the solver a later
@@ -2336,11 +2456,11 @@ def main(kernels_only=False):
             "ms": r["dev_ms"], "plain_ms": r["plain_dev_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_dev_ms"]})
-    # the precision kernels' rows, with phase 20's launches of each kernel
-    # and mode
+    # the precision kernels' rows, each with phase 20's launches of its
+    # table in its mode (0 for the Scott-Vogelius shapes, which phase 20
+    # does not run)
     for r in precision_rows:
-        key = r["kernel"]
-        use = key.split()[0]  # K1, KM or KB
+        use = r["kernel"].split()[0]  # K1, KM or KB
         if use == "K1":
             name = "gather_gemv_scatter f32 %s kernel (%s)" % (
                 r["kernel_path"], r["name"])
@@ -2352,7 +2472,7 @@ def main(kernels_only=False):
             "name": name, "route": "cuda",
             "source": sources["K1" if use == "K1" else "KM"],
             "replaces": REPLACES[use],
-            "launches": precision_launches[key],
+            "launches": precision_launches.get(r["key"], 0),
             "max_abs_err": r["abs_err"], "ms": r["dev_ms"],
             "plain_ms": r["plain_dev_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_dev_ms"]})
