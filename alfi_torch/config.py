@@ -18,8 +18,8 @@ compute dtype, as the JAX package does away from the TPU:
   at the preconditioner boundary; ``ALFI_TORCH_MG_F64_KEYS`` names the
   state entries kept in f64 (comma-separated: ``schoeberl``,
   ``patch_lufacs``, and ``tensors``, ``ftensors`` or ``level_ops`` for
-  the level operators, which the port merges; ``schoeberl`` when unset,
-  see ``DEFAULT_F64_KEYS``);
+  the level operators, which the port merges; none by default, as in the
+  JAX package);
 * ``mg_store`` (``ALFI_TORCH_MG_STORE``): the storage dtype of the level
   operators and of the static patch parts, with f64 arithmetic;
 * ``mg_smooth_dtype`` (``ALFI_TORCH_MG_SMOOTH_DTYPE``): the dtype of the
@@ -107,26 +107,11 @@ def set_mg_smooth_dtype(dtype):
     _mg_smooth = dtype
 
 
-#: the cycle-state entries kept in f64 under an f32 cycle when
-#: ALFI_TORCH_MG_F64_KEYS is unset: a departure from the JAX package,
-#: whose ALFI_TPU_MG_F64_KEYS keeps none.  The Schoeberl transfer's patch
-#: solve is an explicit inverse here (a LU solve in the JAX package on the
-#: CPU): rounded to f32, its entries of size 1/nu carry an error of
-#: eps32 / nu into a solution of size 1/gamma, since the transfer solves
-#: for the grad-div range.  In f32, one cycle at nu = 0.02 departs 6.1e-2
-#: from the f64 cycle against the JAX package's 9.7e-4
-#: (tests/test_torch_precision.py), and the SUPG ladder at ldc2d baseN=8
-#: nref=1 took 535 Krylov at Re 100 and did not converge at Re 1000 (20,
-#: 52 with it f64).  ALFI_TORCH_MG_F64_KEYS set but empty runs the
-#: Schoeberl K1 tables in f32 as the JAX package does.
-DEFAULT_F64_KEYS = frozenset({"schoeberl"})
-
-
 def mg_f64_keys():
     """The cycle-state entries kept in f64 under an f32 cycle
-    (ALFI_TORCH_MG_F64_KEYS, comma-separated; set but empty keeps none;
-    unset: DEFAULT_F64_KEYS)."""
-    env = os.environ.get("ALFI_TORCH_MG_F64_KEYS")
-    if env is None:
-        return set(DEFAULT_F64_KEYS)
-    return set(k for k in env.split(",") if k)
+    (ALFI_TORCH_MG_F64_KEYS, comma-separated; none when unset or empty, as
+    the JAX package's ALFI_TPU_MG_F64_KEYS).  The Schoeberl transfer's
+    patch solve runs on f32 LU factors unless it names ``schoeberl``
+    (``alfi_torch/mg/schoeberl.py``, kernel KL)."""
+    return set(k for k in os.environ.get("ALFI_TORCH_MG_F64_KEYS",
+                                         "").split(",") if k)

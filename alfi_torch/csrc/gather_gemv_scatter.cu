@@ -86,10 +86,11 @@
 //     more (a -1 before the extent reads x as 0).  A pad column would add
 //     fma(a, 0, p) = p, so leaving it out changes no bit.
 //   * Lanes that fit the rows.  A group of G lanes walks a row in steps of
-//     G columns, lane t taking columns t, t + G, ...; kSteps = 4 steps are
-//     a batch.  G is one number per table, chosen on the host from the
-//     live rows' extents, not from m: the power of two, 4 .. 32, that
-//     takes the 75 % row in two batches (alfi_torch/kernels.py:
+//     G columns, lane t taking columns t, t + G, ...; kSteps steps are a
+//     batch (4 in f64; see the f32 note below).  G is one number per
+//     table, chosen on the host from the live rows' extents, not from m:
+//     the power of two, 4 .. 32, that takes the 75 % row in two f64
+//     batches (alfi_torch/kernels.py:
 //     strided_lanes_log2).  That is a warp per dof for the star tables
 //     (the 75 % row has 129 columns on the step mesh, where 85 % of the
 //     lanes of a step then carry a column, against 92 % with 16 lanes and
@@ -153,6 +154,20 @@
 // (8 bytes) and its gather pair as one int2: a row still starts at an even
 // column for an even m, so A need only be 8-byte aligned.  The bytes of A
 // halve, and so does the bound (4,913 x 189 at 3D L2: 0.68 -> 0.34 GB).
+//
+// The strided kernel's batch depth is a property of the scalar type:
+// kSteps = 4 columns of 8 bytes for double, 8 of 4 bytes for float, so
+// that a lane has 32 bytes of A in flight in either.  With 4 steps an f32
+// lane had 16 (230.5 us at 4,913 x 189 against a 103.1 us bound, 45 %,
+// where the f64 kernel reaches 65 %; PERF.md section 6); 8 steps alone
+// gave 217 us.  The f32 lanes per dof come from a rule of their own
+// (alfi_torch/kernels.py: strided_lanes_log2): a row costs an f32 lane
+// half the bytes, so the rule aims at four batches of the 75 % row where
+// f64 aims at two, and more dofs share a warp: 8 lanes at 4,913 x 189,
+// where f64 takes 32 (on the card 8 lanes ran faster there than 16 or
+// 32).  Lane t still takes its columns t, t + G, ... in ascending order;
+// with another G than f64's, the f32 sums run in another order than
+// before this rule.
 //
 // path = 0 picks by m; 1 and 2 force the pair or the strided kernel, for
 // measurements.
@@ -252,16 +267,21 @@ gather_gemv_scatter_kernel(const T* __restrict__ A,
 
 // The strided kernel: any m >= 1 (see the header note).  Lane t of a
 // group of G = 2^glog lanes takes columns t, t + G, ... below the block's
-// live extent of each row of its dof, as scalar loads, kSteps steps to a
-// batch.
+// live extent of each row of its dof, as scalar loads, kStepsOf<T> steps
+// to a batch: kSteps for double, the depth the host's lane rule reads
+// (alfi_torch/kernels.py: STRIDED_STEPS), and as many bytes, 32 a lane,
+// for float.
 constexpr int kSteps = 4;
+template <typename T>
+constexpr int kStepsOf = kSteps * (int)(sizeof(double) / sizeof(T));
 
 // One lane's batch: its kSteps columns j0, j0 + G, ... (those below the
 // live extent nc) of the A row of slot s and of its block's gather row.
 template <typename T>
 struct Batch {
-  T a[kSteps];
-  int g[kSteps];
+  static constexpr int S = kStepsOf<T>;
+  T a[S];
+  int g[S];
 
   __device__ __forceinline__ void load(const T* __restrict__ A,
                                        const int* __restrict__ gidx, int s,
@@ -269,7 +289,7 @@ struct Batch {
     const T* __restrict__ row = A + (long long)s * m;
     const int* __restrict__ grow = gidx + (long long)(s / m) * m;
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
+    for (int u = 0; u < S; ++u) {
       const int j = j0 + u * G;
       const bool in = j < nc;
       a[u] = in ? row[j] : T(0);
@@ -280,11 +300,11 @@ struct Batch {
   // p + a . x[g] in ascending columns; a pad (-1) reads 0, and a step
   // past the live extent adds 0 * 0
   __device__ __forceinline__ T add(const T* __restrict__ x, T p) const {
-    T xv[kSteps];
+    T xv[S];
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : T(0);
+    for (int u = 0; u < S; ++u) xv[u] = g[u] >= 0 ? x[g[u]] : T(0);
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) p = fma_t(a[u], xv[u], p);
+    for (int u = 0; u < S; ++u) p = fma_t(a[u], xv[u], p);
     return p;
   }
 };
@@ -323,7 +343,7 @@ gather_gemv_scatter_strided_kernel(const T* __restrict__ A,
     // the batches of the dof's rows as one stream, in list order, columns
     // ascending: the next batch is loaded before this one's x is gathered
     while (true) {
-      c0 += kSteps * G;
+      c0 += Batch<T>::S * G;
       if (c0 >= nc) {
         if (++q >= qend) break;
         s = sn;

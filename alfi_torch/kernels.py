@@ -9,8 +9,8 @@ The patch apply runs the fused, masked gather-GEMV-scatter
 with dense f64 blocks A_b (m x m), a 0/1 gather S_b given by an index
 table, and 0/1 masks fixed per table (no out_mask: out is the sum).
 
-* K1, the patch apply (smoother and Schoeberl patch solves): A_b are the
-  explicit patch inverses, the table is ``PatchSet.dofs``.
+* K1, the patch apply (smoother and, in f64, Schoeberl patch solves): A_b
+  are the explicit patch inverses, the table is ``PatchSet.dofs``.
 * K2, the level matvec by blocks: A_b the per-cell element tensors, the
   table ``MGLevel.rows``.  The cycle no longer runs it (see below); it
   stays as the yardstick the merged operator is measured against.
@@ -34,7 +34,17 @@ source positions), so the AMG baseline's level-1 Galerkin product
 (``mg/amg.py``) runs it too, over a map of its own.  KM takes f64 or f32
 values and f64 or f32 vectors (the precision modes); in the modes that
 store the level operator gamma-split, :class:`GradDivTerm` (kernel KB of
-the same source) adds the grad-div term from its f64 factors.
+the same source) adds the grad-div term from its f64 factors: its cell
+stage in a launch of its own, its dof stage as KM's epilogue on levels
+whose KM rows are narrow (``MergedLevelOperator.takes_epilogue``), else
+in a second launch.
+
+Where a patch solve runs on f32 factors (the f32 cycle's Schoeberl
+transfer; the Chebyshev smoother stored in f32), :class:`PatchLUSolve`
+applies the patches' f64 LU factors rounded to f32 by triangular solves
+(kernel KL, ``csrc/patch_lu_solve.cu``), as the JAX package applies its
+f32 LU factors: an explicit inverse rounded to f32 carries eps32 / nu
+into solutions of size 1 / gamma.
 
 Each source is built with nvcc for ``sm_90a`` at first use, into the
 git-ignored ``_build/`` directory under a name keyed by the source's hash,
@@ -64,17 +74,23 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 #: the fused gather-GEMV-scatter (K1)
 SOURCE = os.path.join(_HERE, "csrc", "gather_gemv_scatter.cu")
-#: the merged level operator (KM apply, KA assembly)
+#: the merged level operator (KM apply, KA assembly, KB grad-div term)
 LEVEL_SOURCE = os.path.join(_HERE, "csrc", "level_operator.cu")
+#: the gathered batched LU solve of the f32 Schoeberl patches (KL)
+LU_SOURCE = os.path.join(_HERE, "csrc", "patch_lu_solve.cu")
+SOURCES = (SOURCE, LEVEL_SOURCE, LU_SOURCE)
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: the pair kernel takes an even m up to here (csrc: kMaxM)
 PAIR_MAX_M = 64
-#: strided kernel: columns of a row that a lane loads in one batch (csrc:
-#: kSteps)
+#: strided kernel: columns of a row that a lane loads in one batch, for
+#: f64 A (csrc: kSteps); f32 A loads twice as many, the same 32 bytes
 STRIDED_STEPS = 4
+#: strided kernel: the batches of the LANES_QUANTILE row that the lane
+#: rule aims at, for f64 and for f32 A (see strided_lanes_log2)
+STRIDED_BATCHES = {8: 2, 4: 4}
 #: strided kernel: the lanes per dof are the power of two (4 .. 32) that
 #: takes this quantile of the live rows' extents in two batches
 LANES_QUANTILE = 0.75
@@ -119,11 +135,21 @@ def _bind(source, lib):
         lib.alfi_gather_gemv_scatter_f32.restype = ci
         lib.alfi_gather_gemv_scatter_f32.argtypes = (
             lib.alfi_gather_gemv_scatter.argtypes)
+    elif source == LU_SOURCE:
+        for fn in (lib.alfi_patch_lu_solve, lib.alfi_patch_lu_solve_x64):
+            fn.restype = ci
+            fn.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.alfi_patch_slot_sum.restype = ci
+        lib.alfi_patch_slot_sum.argtypes = [vp] * 6 + [ci] * 3 + [vp]
     else:
         lib.alfi_level_apply.restype = ci
-        lib.alfi_level_apply.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci]
+        lib.alfi_level_apply.argtypes = ([vp] * 6 + [ci] * 4 + [vp, ci]
+                                         + [vp] * 3)
         lib.alfi_graddiv_apply.restype = ci
         lib.alfi_graddiv_apply.argtypes = ([vp] * 8 + [ci] * 4
+                                           + [ctypes.c_double, ci, ci, vp])
+        lib.alfi_graddiv_cells.restype = ci
+        lib.alfi_graddiv_cells.argtypes = ([vp] * 4 + [ci] * 3
                                            + [ctypes.c_double, ci, ci, vp])
         lib.alfi_level_assemble.restype = ci
         lib.alfi_level_assemble.argtypes = ([vp, vp, ci, vp, vp, vp,
@@ -140,7 +166,7 @@ def load_library(source=SOURCE):
     if source in _libs:
         return _libs[source]
     procs = {}
-    for src in (SOURCE, LEVEL_SOURCE):
+    for src in SOURCES:
         path = library_path(src)
         if src in _libs or os.path.exists(path):
             continue
@@ -161,7 +187,7 @@ def load_library(source=SOURCE):
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("\n".join(failed))
-    for src in (SOURCE, LEVEL_SOURCE):
+    for src in SOURCES:
         if src not in _libs:
             _libs[src] = _bind(src, ctypes.CDLL(library_path(src)))
     return _libs[source]
@@ -190,17 +216,23 @@ def live_extents(gidx):
     return np.where(live.any(axis=1), last, 0).astype(np.int32)
 
 
-def strided_lanes_log2(row_extents):
+def strided_lanes_log2(row_extents, itemsize=8):
     """log2 of the strided kernel's lanes per dof for a table whose live
-    rows have these extents: the power of two, from 4 lanes (one 32-byte
-    sector per step) to a warp, that takes the LANES_QUANTILE row in two
-    batches of STRIDED_STEPS steps.  From the rows and not from m: the
-    largest block of a ragged table says little about its rows."""
+    rows have these extents and A entries of ``itemsize`` bytes: the power
+    of two, from 4 lanes (one 32-byte sector per step) to a warp, that
+    takes the LANES_QUANTILE row in STRIDED_BATCHES[itemsize] batches of
+    32 / itemsize steps: two batches of 4 steps in f64; four of 8 in f32,
+    whose rows cost a lane half the bytes, so that more dofs share a warp
+    (at the 3D scale row's 4,913 x 189 table 8 lanes where f64 takes 32:
+    on the card, 8 lanes ran faster than 16 and 32; PERF.md section 6).
+    From the rows and not from m: the largest block of a ragged table
+    says little about its rows."""
     if len(row_extents) == 0:
         return 2
     q = float(np.quantile(row_extents, LANES_QUANTILE))
-    return int(np.clip(np.ceil(np.log2(max(q / (2 * STRIDED_STEPS), 1.0))),
-                       2, 5))
+    steps = STRIDED_STEPS * 8 // itemsize
+    per_lane = STRIDED_BATCHES[itemsize] * steps
+    return int(np.clip(np.ceil(np.log2(max(q / per_lane, 1.0))), 2, 5))
 
 
 def _mask_keep(mask, n, name):
@@ -295,8 +327,9 @@ class GatherGemvScatter:
         #: per block, one past its last gathered column; and the same per
         #: CSR slot (live row), beside ``slots``
         self.ncols, self.slot_cols = dev(ncols), dev(slot_cols)
-        #: log2 of the strided kernel's lanes per dof
+        #: log2 of the strided kernel's lanes per dof, on f64 and on f32 A
         self.lanes_log2 = strided_lanes_log2(slot_cols)
+        self.lanes_log2_f32 = strided_lanes_log2(slot_cols, itemsize=4)
         #: the masks as one 0/1 byte (bool) per dof
         self.in_keep = None if in_keep is None else dev(in_keep)
         self.out_keep = None if out_keep is None else dev(out_keep)
@@ -344,7 +377,8 @@ class GatherGemvScatter:
             None if passthrough is None else passthrough.data_ptr(),
             out.data_ptr(), self.n, self.m, self.path, self.device.index,
             torch._C._cuda_getCurrentRawStream(self.device.index),
-            slot_cols, self.lanes_log2)
+            slot_cols, self.lanes_log2 if A.dtype == torch.float64
+            else self.lanes_log2_f32)
         if err != 0:
             raise RuntimeError("gather_gemv_scatter: CUDA error %d after "
                                "launch" % err)
@@ -499,6 +533,7 @@ def merged_lanes_log2(row_lengths, d):
 _MODE = {(torch.float64, torch.float32): "f64/f32",
          (torch.float32, torch.float64): "f32/f64",
          (torch.float32, torch.float32): "f32/f32"}
+_GD_MODES = {**_MODE, (torch.float64, torch.float64): "f64/f64"}
 
 
 class MergedLevelOperator:
@@ -519,6 +554,8 @@ class MergedLevelOperator:
     launches = {"KM": 0, "KA": 0}
     #: of KM's, those in a mixed mode, by "values/vectors" dtype
     mode_launches = {"f64/f32": 0, "f32/f64": 0, "f32/f32": 0}
+    #: of KM's, those with KB's dof stage as their epilogue
+    epilogue_launches = {"KM+KB": 0}
     _tables_alive = weakref.WeakSet()
 
     def __init__(self, pattern, *, device):
@@ -551,10 +588,18 @@ class MergedLevelOperator:
         self.diag_block = dev(diag)
         #: log2 of KM's lanes per node row
         self.lanes_log2 = merged_lanes_log2(pattern.row_lengths, d)
+        #: whether a split level apply takes KB's dof stage as KM's
+        #: epilogue: on rows of at most 4 d lanes (the 2D levels' 8).  On
+        #: wider rows (3D: 16, 32) d lanes would walk the dofs' lists while
+        #: the rest of the row's lanes wait; the card measured the epilogue
+        #: slower there than a launch of its own (PERF.md section 6)
+        self.takes_epilogue = (1 << self.lanes_log2) <= 4 * d
         self._km_launched = 0
         #: this table's KM launches in each mixed mode since the last
-        #: reset_launch_counts()
+        #: reset_launch_counts(), and those with the grad-div epilogue by
+        #: "values/vectors" dtype
         self.mode_launched = dict.fromkeys(self.mode_launches, 0)
+        self.gd_launched = dict.fromkeys(_GD_MODES.values(), 0)
         MergedLevelOperator._tables_alive.add(self)
         self._lib = None
         if self.device.type == "cuda":
@@ -581,23 +626,33 @@ class MergedLevelOperator:
             self._check(facets, "facets", self.facet_shape)
         return self.assembly(cells, facets).reshape(self.vshape)
 
-    def __call__(self, vals, x):
+    def __call__(self, vals, x, graddiv=None):
         """out (n,) = keep * A x + (1 - keep) * x, A the merged values;
         ``vals`` and ``x`` each f64 or f32, the arithmetic in the promoted
-        dtype, out in x's."""
+        dtype, out in x's.  ``graddiv`` = (term, w): a split level apply,
+        whose grad-div term (``term``, the level's masked
+        :class:`GradDivTerm`, with ``w`` = term.cell_stage(B, gamma, x))
+        KM adds as its epilogue: keep * (A x + the term) in one rounding to
+        x's dtype."""
         _check_tensor(vals, "vals", self.vshape, self.device, FLOATS)
         _check_tensor(x, "x", (self.n,), self.device, FLOATS)
+        if graddiv is not None:
+            term, w = graddiv
+            term.check_dof_stage(w, self.n)
         if self._lib is None:
-            return self.plain(vals, x)
+            return self.plain(vals, x, graddiv)
         out = torch.empty((self.n,), dtype=x.dtype, device=self.device)
         idx = self.device.index
+        gd = ((None, None, None) if graddiv is None
+              else (w.data_ptr(), term.offsets.data_ptr(),
+                    term.slots.data_ptr()))
         err = self._lib.alfi_level_apply(
             vals.data_ptr(), x.data_ptr(), self.rowptr.data_ptr(),
             self.bcol.data_ptr(), self.keep.data_ptr(), out.data_ptr(),
             self.nodes, self.d, self.lanes_log2, idx,
             torch._C._cuda_getCurrentRawStream(idx),
             int(vals.dtype == torch.float32)
-            + 2 * int(x.dtype == torch.float32))
+            + 2 * int(x.dtype == torch.float32), *gd)
         if err != 0:
             raise RuntimeError("level_operator KM: CUDA error %d after "
                                "launch" % err)
@@ -606,6 +661,9 @@ class MergedLevelOperator:
             mode = _MODE[vals.dtype, x.dtype]
             MergedLevelOperator.mode_launches[mode] += 1
             self.mode_launched[mode] += 1
+        if graddiv is not None:
+            MergedLevelOperator.epilogue_launches["KM+KB"] += 1
+            self.gd_launched[_GD_MODES[vals.dtype, x.dtype]] += 1
         self._km_launched += 1
         return out
 
@@ -621,16 +679,23 @@ class MergedLevelOperator:
         dv = vals[self.diag_block][:, ar, ar].reshape(-1)
         return torch.where(self.keep, dv, torch.ones_like(dv))
 
-    def plain(self, vals, x):
+    def plain(self, vals, x, graddiv=None):
         """KM in plain PyTorch: x gathered by block column, an einsum and
         an index_add_ by block row, then the passthrough; in the promoted
-        dtype of vals and x, out in x's."""
+        dtype of vals and x, out in x's.  With ``graddiv``, the term's
+        plain dof stage added in f64 to the promoted sum before the one
+        rounding."""
         ct = torch.promote_types(vals.dtype, x.dtype)
         xc = x.to(ct)
         xb = xc.reshape(self.nodes, self.d)[self.bcol.long()]
         y = torch.einsum("bij,bj->bi", vals.to(ct), xb)
         acc = xc.new_zeros((self.nodes, self.d)).index_add_(0, self.brow, y)
-        return torch.where(self.keep, acc.reshape(-1), xc).to(x.dtype)
+        acc = acc.reshape(-1)
+        if graddiv is not None:
+            term, w = graddiv
+            acc = acc.to(torch.float64) + term.dof_sums(w)
+            xc = x.to(torch.float64)
+        return torch.where(self.keep, acc, xc).to(x.dtype)
 
     def value_bytes(self, itemsize=8):
         """Bytes of one apply's merged operator: the values (``itemsize``
@@ -643,8 +708,11 @@ class GradDivTerm:
     the grad-div term of a level operator stored gamma-split, from the
     static per-cell factors B (nc, nld, q) f64 (``NSForm.graddiv_factors``,
     G_c = B_c B_c^T), in f64 arithmetic on x, y and out of one dtype (f64
-    or f32): kernel KB of ``csrc/level_operator.cu``, two launches, no
-    atomics.
+    or f32): kernel KB of ``csrc/level_operator.cu``, a cell stage and a
+    dof stage, no atomics.  Called whole (the raw use), the two stages are
+    two launches; a split level apply launches the cell stage alone
+    (:meth:`cell_stage`) and KM takes the dof stage as its epilogue
+    (:class:`MergedLevelOperator`'s ``graddiv``).
 
     ``rows`` (nc, nld) host table of each cell's flat dofs; ``keep``: an
     optional 0/1 mask of n values (the level's BC mask, in and out), None
@@ -652,7 +720,8 @@ class GradDivTerm:
     run the plain version; on a CUDA device the kernel launches or
     raises."""
 
-    #: launches since the last reset_launch_counts()
+    #: calls that launched (a cell stage alone, or both stages) since the
+    #: last reset_launch_counts()
     launches = {"KB": 0}
     _tables_alive = weakref.WeakSet()
 
@@ -679,15 +748,15 @@ class GradDivTerm:
         #: the plain version's table: masked entries point at n (a zero)
         self.pidx = dev(np.where(live, rows, self.n))
         self._scatter = None
-        #: this term's launches since the last reset_launch_counts(), and
-        #: of those the ones on f32 vectors
+        #: this term's launching calls since the last reset_launch_counts(),
+        #: and of those the ones on f32 vectors
         self.launched = self.f32_launched = 0
         GradDivTerm._tables_alive.add(self)
         self._lib = None
         if self.device.type == "cuda":
             self._lib = load_library(LEVEL_SOURCE)
 
-    def _check(self, B, x, y):
+    def _check(self, B, x, y=None):
         if B.dim() != 3 or B.shape[:2] != (self.nc, self.nld):
             raise ValueError("B must be (%d, %d, q), got %s"
                              % (self.nc, self.nld, tuple(B.shape)))
@@ -696,9 +765,24 @@ class GradDivTerm:
         if y is not None:
             _check_tensor(y, "y", (self.n,), self.device, (x.dtype,))
 
+    def check_dof_stage(self, w, n):
+        """Raise unless w, the cell stage's (nc * nld,) f64 contributions,
+        and a vector of n values fit this term (a split level apply's dof
+        stage)."""
+        if n != self.n:
+            raise ValueError("the term has %d values, the operator %d"
+                             % (self.n, n))
+        _check_tensor(w, "w", (self.nc * self.nld,), self.device)
+
+    def _count(self, x):
+        GradDivTerm.launches["KB"] += 1
+        self.launched += 1
+        if x.dtype == torch.float32:
+            self.f32_launched += 1
+
     def __call__(self, B, gamma, x, y=None, out=None):
         """The term added to ``y`` (None: 0) in ``out`` (None: a new
-        tensor; ``out`` may be ``y``), in x's dtype."""
+        tensor; ``out`` may be ``y``), in x's dtype: both stages."""
         self._check(B, x, y)
         if self._lib is None:
             return self.plain(B, gamma, x, y)
@@ -707,28 +791,57 @@ class GradDivTerm:
             out = torch.empty((self.n,), dtype=x.dtype, device=self.device)
         elif out is not y:
             _check_tensor(out, "out", (self.n,), self.device, (x.dtype,))
-        dq = torch.empty((self.nc * q,), dtype=torch.float64,
-                         device=self.device)
+        w = torch.empty((self.nc * self.nld,), dtype=torch.float64,
+                        device=self.device)
         idx = self.device.index
         err = self._lib.alfi_graddiv_apply(
             B.data_ptr(), x.data_ptr(), self.gidx.data_ptr(),
             self.offsets.data_ptr(), self.slots.data_ptr(),
             None if y is None else y.data_ptr(), out.data_ptr(),
-            dq.data_ptr(), self.nc, self.nld, q, self.n, float(gamma),
+            w.data_ptr(), self.nc, self.nld, q, self.n, float(gamma),
             int(x.dtype == torch.float32), idx,
             torch._C._cuda_getCurrentRawStream(idx))
         if err != 0:
             raise RuntimeError("level_operator KB: CUDA error %d after "
                                "launch" % err)
-        GradDivTerm.launches["KB"] += 1
-        self.launched += 1
-        if x.dtype == torch.float32:
-            self.f32_launched += 1
+        self._count(x)
         return out
 
-    def plain(self, B, gamma, x, y=None):
-        """KB in plain PyTorch, f64: the einsum pair and the ordered
-        scatter-add (``fem/scatter.py:ScatterAdd``); out in x's dtype."""
+    def cell_stage(self, B, gamma, x):
+        """w (nc * nld,) f64, each cell entry's contribution B_c,i .
+        (gamma B_c^T (keep * x)_c), in cell order: the cell stage alone,
+        one launch (a split level apply's first)."""
+        self._check(B, x)
+        if self._lib is None:
+            return self.contributions(B, self._plain_cells(B, gamma, x))
+        w = torch.empty((self.nc * self.nld,), dtype=torch.float64,
+                        device=self.device)
+        idx = self.device.index
+        err = self._lib.alfi_graddiv_cells(
+            B.data_ptr(), x.data_ptr(), self.gidx.data_ptr(), w.data_ptr(),
+            self.nc, self.nld, B.shape[2], float(gamma),
+            int(x.dtype == torch.float32), idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+        if err != 0:
+            raise RuntimeError("level_operator KB cell stage: CUDA error %d "
+                               "after launch" % err)
+        self._count(x)
+        return w
+
+    def _plain_cells(self, B, gamma, x):
+        x64 = x.to(torch.float64)
+        vloc = torch.cat([x64, x64.new_zeros(1)])[self.pidx]
+        return gamma * torch.einsum("cip,ci->cp", B, vloc)
+
+    def contributions(self, B, dq):
+        """(nc * nld,) f64 B_c,i . dq_c of every cell entry (the cell
+        stage's second half in plain PyTorch)."""
+        return torch.einsum("cip,cp->ci", B, dq).reshape(-1)
+
+    def dof_sums(self, w):
+        """(n,) f64 the sum of each dof's live contributions, in ascending
+        position: the dof stage in plain PyTorch, the ordered scatter-add
+        (``fem/scatter.py:ScatterAdd``)."""
         from .fem.scatter import ScatterAdd
 
         if self._scatter is None:
@@ -737,14 +850,199 @@ class GradDivTerm:
             self._live = (self.pidx < self.n).reshape(-1)
             self._scatter = ScatterAdd(self.pidx.reshape(-1)[self._live],
                                        self.n)
-        x64 = x.to(torch.float64)
-        vloc = torch.cat([x64, x64.new_zeros(1)])[self.pidx]
-        dq = gamma * torch.einsum("cip,ci->cp", B, vloc)
-        acc = self._scatter(
-            torch.einsum("cip,cp->ci", B, dq).reshape(-1)[self._live])
+        return self._scatter(w[self._live])
+
+    def plain(self, B, gamma, x, y=None):
+        """KB in plain PyTorch, f64: the einsum pair and the ordered
+        scatter-add; out in x's dtype."""
+        acc = self.dof_sums(self.contributions(
+            B, self._plain_cells(B, gamma, x)))
         if y is not None:
             acc = y.to(torch.float64) + acc
         return acc.to(x.dtype)
+
+
+class PatchLUSolve:
+    """out = out_mask * sum_p S_p^T (P_p L_p U_p)^{-1} S_p x
+    + (1 - out_mask) * passthrough: the additive solve of a patch table
+    from the f64 LU factors of its matrices (partial pivoting) stored in
+    f32, applied by triangular solves, as the JAX package applies its LU
+    factors.  Kernel KL of ``csrc/patch_lu_solve.cu``: gather, row
+    interchanges, forward and back substitution, in the factors' f32 (x
+    rounded to f32 at the gather).  Patches disjoint in their dofs (the
+    Schoeberl transfer's) take one launch and a plain store, 0 at the dofs
+    outside them; overlapping ones (the star patches of the
+    Chebyshev-driven smoother) store each patch row to f32 scratch and sum
+    each dof's rows in x's dtype over its CSR list in a second launch, as
+    the JAX package sums its f32 solves in f64.  No atomics.
+
+    ``idx`` (np, m) host table of positions in x (pads outside [0, n));
+    ``out_mask`` an optional 0/1 mask of n values, fixed here (with it,
+    every call passes ``passthrough``).  :meth:`factor` takes the f64
+    matrices (np, m, m) and returns the state each call applies.  x,
+    passthrough and out are f32 or f64 (a disjoint table with f32 factors:
+    f32).  Tensors on the CPU run the plain version
+    (``torch.linalg.lu_solve``); on a CUDA device the kernel launches or
+    raises (m <= MAX_M)."""
+
+    #: calls that launched since the last reset_launch_counts() (one or
+    #: two kernels each), and of those the ones on f64 vectors
+    launches = {"KL": 0}
+    mixed_launches = {"KL": 0}
+    _tables_alive = weakref.WeakSet()
+    #: the kernel's largest patch (csrc: 32 lanes x kMaxRows)
+    MAX_M = 128
+
+    def __init__(self, idx, n, *, out_mask=None, device):
+        idx = np.asarray(idx, dtype=np.int64)
+        nb, m = idx.shape
+        n = int(n)
+        if n >= 2 ** 31 or idx.size >= 2 ** 31:
+            raise ValueError("table too large for int32 tables")
+        live = (idx >= 0) & (idx < n)
+        flat = idx[live]
+        #: disjoint patches store; overlapping ones sum
+        self.disjoint = np.unique(flat).size == flat.size
+        out_keep = None if out_mask is None else _mask_keep(out_mask, n,
+                                                            "out_mask")
+        self.n, self.m, self.npatches = n, m, nb
+        self.ashape = (nb, m, m)
+        #: per patch its live entries (the bound's factor entries: s^2)
+        self.sizes = live.sum(axis=1)
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        gidx = np.where(live, idx, -1)
+        #: the gather table's int64 twin (for each factorisation's gperm)
+        #: and the plain version's table (pads n)
+        self._gidx64 = dev(gidx)
+        self.pidx = dev(np.where(live, idx, n))
+        self.device = self.pidx.device
+        self.out_keep = None if out_keep is None else dev(out_keep)
+        if self.disjoint and out_keep is None:
+            covered = np.zeros(n, dtype=bool)
+            covered[flat] = True
+            #: the store table (pads -1) and the dofs outside every patch
+            self.sidx = dev(gidx.astype(np.int32))
+            self.zero = dev(np.flatnonzero(~covered).astype(np.int32))
+        else:
+            self.disjoint = False
+            # every live row to its scratch slot; the dofs' CSR lists of
+            # slots (masked dofs own none)
+            self.sidx = dev(np.where(live, np.arange(nb * m).reshape(nb, m),
+                                     -1).astype(np.int32))
+            self.zero = dev(np.zeros(0, dtype=np.int32))
+            owned = gidx if out_keep is None else np.where(
+                live & out_keep[np.where(live, idx, 0)], idx, -1)
+            offsets, slots = csr_from_table(owned, n)
+            self.offsets, self.slots = dev(offsets), dev(slots)
+        self.launched = self.mixed_launched = 0
+        PatchLUSolve._tables_alive.add(self)
+        self._lib = None
+        if self.device.type == "cuda":
+            if m > self.MAX_M:
+                raise ValueError("the LU solve kernel takes m <= %d, got %d"
+                                 % (self.MAX_M, m))
+            self._lib = load_library(LU_SOURCE)
+
+    def factor(self, A, dtype=torch.float32):
+        """The state of one set of patch matrices A (np, m, m) f64: their
+        LU factors with partial pivoting, computed in f64
+        (``torch.linalg.lu_factor``, a set-up library call) and stored in
+        ``dtype`` column-major (``lut``: lut[p, j, i] = LU[p, i, j]), the
+        pivots, and the gather table with the row interchanges folded in
+        (``gperm``: position in x of row i after them, -1 for a pad)."""
+        _check_tensor(A, "A", self.ashape, self.device)
+        LU, piv = torch.linalg.lu_factor(A)
+        # A = P L U: row i of P^T b is b[perm[i]], perm[i] = the row of
+        # P's one in column i
+        P, _, _ = torch.lu_unpack(LU, piv, unpack_data=False)
+        perm = P.argmax(dim=-2)
+        return {"lut": LU.to(dtype).mT.contiguous(),
+                "piv": piv,
+                "gperm": self._gidx64.gather(1, perm).to(torch.int32)}
+
+    def __call__(self, fac, x, passthrough=None):
+        """out (n,) in x's dtype."""
+        if (passthrough is None) != (self.out_keep is None):
+            raise ValueError("passthrough is required exactly when the "
+                             "table has an out_mask")
+        lut = fac["lut"]
+        _check_tensor(lut, "lut", self.ashape, self.device, FLOATS)
+        _check_tensor(x, "x", (self.n,), self.device, FLOATS)
+        if passthrough is not None:
+            _check_tensor(passthrough, "passthrough", (self.n,), self.device,
+                          (x.dtype,))
+        if self.disjoint and x.dtype != lut.dtype:
+            raise ValueError("a disjoint table stores in the factors' dtype")
+        if self._lib is None:
+            return self.plain(fac, x, passthrough)
+        if lut.dtype != torch.float32:
+            raise ValueError("the LU solve kernel takes f32 factors")
+        f64 = x.dtype == torch.float64
+        solve = (self._lib.alfi_patch_lu_solve_x64 if f64
+                 else self._lib.alfi_patch_lu_solve)
+        out = torch.empty((self.n,), dtype=x.dtype, device=self.device)
+        rows = out if self.disjoint else torch.empty(
+            (self.npatches * self.m,), dtype=lut.dtype, device=self.device)
+        idx = self.device.index
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        err = solve(lut.data_ptr(), x.data_ptr(), fac["gperm"].data_ptr(),
+                    self.sidx.data_ptr(), self.zero.data_ptr(),
+                    rows.data_ptr(), self.npatches, self.m,
+                    int(self.zero.numel()), idx, stream)
+        if err == 0 and not self.disjoint:
+            err = self._lib.alfi_patch_slot_sum(
+                rows.data_ptr(), self.offsets.data_ptr(),
+                self.slots.data_ptr(),
+                None if self.out_keep is None else self.out_keep.data_ptr(),
+                None if passthrough is None else passthrough.data_ptr(),
+                out.data_ptr(), self.n, int(not f64), idx, stream)
+        if err != 0:
+            raise RuntimeError("patch_lu_solve KL: CUDA error %d after "
+                               "launch" % err)
+        PatchLUSolve.launches["KL"] += 1
+        self.launched += 1
+        if f64:
+            PatchLUSolve.mixed_launches["KL"] += 1
+            self.mixed_launched += 1
+        return out
+
+    def gathered(self, x):
+        """(np, m) x at each patch's dofs, pads 0 (the right-hand sides of
+        the plain version)."""
+        return torch.cat([x, x.new_zeros(1)])[self.pidx]
+
+    def plain(self, fac, x, passthrough=None):
+        """KL in plain PyTorch: the gathered right-hand sides, in the
+        factors' dtype, through ``torch.linalg.lu_solve`` on the stored
+        factors, then in x's dtype written by the table (disjoint patches;
+        pads to a dropped slot) or summed by index_add_, and the
+        out-mask."""
+        lut = fac["lut"]
+        y = torch.linalg.lu_solve(
+            lut.mT, fac["piv"],
+            self.gathered(x).to(lut.dtype)[..., None])[..., 0].to(x.dtype)
+        out = x.new_zeros(self.n + 1)
+        if self.disjoint:
+            out[self.pidx.reshape(-1)] = y.reshape(-1)
+        else:
+            out.index_add_(0, self.pidx.reshape(-1), y.reshape(-1))
+        out = out[:self.n]
+        if self.out_keep is None:
+            return out
+        return torch.where(self.out_keep, out, passthrough)
+
+    def bound_bytes(self, itemsize=4):
+        """{part: bytes} one call must move: the live factor entries (f32),
+        the gather and store tables, x at the patches' dofs and out
+        (``itemsize`` bytes a value; on overlapping patches x is read and
+        out written once a dof, the pass-through included)."""
+        live = int(self.sizes.sum())
+        return {"factors": 4 * int((self.sizes ** 2).sum()),
+                "tables": 2 * 4 * self.npatches * self.m,
+                "x": itemsize * live, "out": itemsize * self.n}
 
 
 def reset_launch_counts():
@@ -765,6 +1063,13 @@ def reset_launch_counts():
         MapAssembly.launches[key] = 0
     for table in MapAssembly._tables_alive:
         table.launched = 0
+    for table in MergedLevelOperator._tables_alive:
+        table.gd_launched = dict.fromkeys(table.gd_launched, 0)
+    MergedLevelOperator.epilogue_launches["KM+KB"] = 0
     GradDivTerm.launches["KB"] = 0
     for table in GradDivTerm._tables_alive:
         table.launched = table.f32_launched = 0
+    PatchLUSolve.launches["KL"] = 0
+    PatchLUSolve.mixed_launches["KL"] = 0
+    for table in PatchLUSolve._tables_alive:
+        table.launched = table.mixed_launched = 0

@@ -519,14 +519,15 @@ def static_patch_sum(static, params):
 
 def make_patch_factor_parts(patchset):
     """factor_parts(static, N_el, params) -> explicit f64 inverses of
-    nu K_p + gamma G_p + advect N_p + pad."""
+    nu K_p + gamma G_p + advect N_p + pad (``invert=False``: the matrices
+    themselves)."""
 
-    def factor_parts(static, N_el, params):
+    def factor_parts(static, N_el, params, invert=True):
         A = static_patch_sum(static, params)
         if N_el is not None:
             A = A + params["advect"] * contract_patch_tensors(patchset,
                                                               N_el)
-        return patch_inverses(A).contiguous()
+        return patch_inverses(A).contiguous() if invert else A
 
     return factor_parts
 
@@ -552,11 +553,12 @@ def build_patch_solver(patchset, *, out_mask=None, device):
 
 def make_patch_factor(patchset):
     """factor(tensors (nc, nld, nld)) -> (np, m, m) explicit inverses of
-    the patch matrices summed from the whole cell tensors."""
+    the patch matrices summed from the whole cell tensors
+    (``invert=False``: the matrices themselves)."""
 
-    def factor(tensors):
-        return patch_inverses(assemble_patch_matrices(patchset,
-                                                      tensors)).contiguous()
+    def factor(tensors, invert=True):
+        A = assemble_patch_matrices(patchset, tensors)
+        return patch_inverses(A).contiguous() if invert else A
 
     return factor
 

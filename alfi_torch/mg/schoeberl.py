@@ -24,9 +24,13 @@ Matching the reference:
 * the patch factorisations depend only on (nu, gamma) and are rebuilt
   once per Reynolds number.
 
-The patch solve M runs kernel K1 (alfi_torch/kernels.py), in f64 or, in
-the f32 cycle, f32; A_gd stays plain torch in f64 and runs kernel KB on
-f32 vectors (f64 arithmetic, no TF32).
+The patch solve M runs kernel K1 (alfi_torch/kernels.py) on explicit f64
+inverses or, in the f32 cycle, kernel KL on f32 LU factors (the JAX
+package's f32 LU solves): an explicit inverse rounded to f32 carries
+eps32 / nu into a solution of size 1 / gamma, since the transfer solves
+for the grad-div range, where triangular solves with f32 factors keep
+the LU's backward stability.  A_gd stays plain torch in f64 and runs
+kernel KB on f32 vectors (f64 arithmetic, no TF32).
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import real_dtype
-from ..kernels import GradDivTerm
+from ..config import mg_f64_keys, real_dtype
+from ..kernels import GradDivTerm, PatchLUSolve
 from ..solvers.batched_lu import patch_inverses
 from .patches import (
+    assemble_patch_matrices,
     build_patch_solver,
     cell_patches,
     patch_static_operators,
@@ -76,6 +81,8 @@ class SchoeberlTransfer:
         ps = cell_patches(V, zmask.reshape(-1), groups)
         self.patchset = ps
         self.factor, self.papply = build_patch_solver(ps, device=mg.device)
+        #: kernel KL on the patch table (built at the first f32 set-up)
+        self.lusolve = None
         #: kernel KB on the fine level's cells, no mask (built at the first
         #: f32 call)
         self._gd_term = None
@@ -110,19 +117,30 @@ class SchoeberlTransfer:
                                       store=self.mg.sdt)
 
     def setup(self, params, static=None):
-        """Per-parameter state: patch inverses of the transfer form (nu
-        viscous + gamma graddiv, no advection), from ``static`` =
+        """Per-parameter state of the transfer form (nu viscous + gamma
+        graddiv, no advection), its patch matrices from ``static`` =
         static_ops() or, without it, from the whole cell tensors of that
-        form (the grad-div harness's route, as in the JAX package)."""
+        form (the grad-div harness's route, as in the JAX package): their
+        explicit f64 inverses ("lufac"), or under an f32 cycle (but for
+        ALFI_TORCH_MG_F64_KEYS) their f64 LU factors stored in f32 ("lu",
+        kernel KL's state)."""
         if static is None:
             lev = self.fine_level
             zero_wind = torch.zeros((lev.V.ndof, self.mg.d),
                                     dtype=real_dtype, device=self.mg.device)
             tensors = lev.form.velocity_element_tensors(
                 dict(params, advect=0.0), zero_wind)
-            return {"lufac": self.factor(tensors), "gamma": params["gamma"]}
-        return {"lufac": patch_inverses(static_patch_sum(static,
-                                                         params)).contiguous(),
+            A = assemble_patch_matrices(self.patchset, tensors)
+        else:
+            A = static_patch_sum(static, params)
+        if self.mg.cdt != real_dtype and "schoeberl" not in mg_f64_keys():
+            if self.lusolve is None:
+                self.lusolve = PatchLUSolve(self.patchset.dofs,
+                                            self.patchset.nflat,
+                                            device=self.mg.device)
+            return {"lu": self.lusolve.factor(A, self.mg.cdt),
+                    "gamma": params["gamma"]}
+        return {"lufac": patch_inverses(A).contiguous(),
                 "gamma": params["gamma"]}
 
     def _apply_gd(self, gamma, v):
@@ -144,20 +162,26 @@ class SchoeberlTransfer:
         rloc = gamma * torch.einsum("clq,cq->cl", Bt, t)
         return lev.sum_cells(rloc).reshape(lev.V.ndof, self.mg.d)
 
-    def _patch_solve(self, lufac, r):
-        """M (zmask * r) in one call of kernel K1: the patch table holds
-        no dof whose zmask is 0, so M never reads r there.  Inverses kept
-        in f64 under an f32 cycle (ALFI_TORCH_MG_F64_KEYS) apply in f64."""
-        x = self.papply(lufac, r.reshape(-1).to(lufac.dtype))
+    def _patch_solve(self, state, r):
+        """M (zmask * r) in one call of kernel K1 (explicit inverses) or KL
+        (f32 LU factors): the patch table holds no dof whose zmask is 0, so
+        M never reads r there.  Inverses kept in f64 under an f32 cycle
+        (ALFI_TORCH_MG_F64_KEYS) apply in f64."""
+        if "lu" in state:
+            x = self.lusolve(state["lu"],
+                             r.reshape(-1).to(state["lu"]["lut"].dtype))
+        else:
+            lufac = state["lufac"]
+            x = self.papply(lufac, r.reshape(-1).to(lufac.dtype))
         return x.reshape(-1, self.mg.d).to(r.dtype)
 
     def prolong(self, state, uc):
         rhs = self.standard.apply(uc)
-        tildeu = self._patch_solve(state["lufac"],
-                                   self._apply_gd(state["gamma"], rhs))
+        tildeu = self._patch_solve(state, self._apply_gd(state["gamma"],
+                                                         rhs))
         return rhs - tildeu
 
     def restrict(self, state, rf):
-        t = self._patch_solve(state["lufac"], rf)
+        t = self._patch_solve(state, rf)
         b = self._apply_gd(state["gamma"], t)
         return self.standard.apply_transpose(rf - b)

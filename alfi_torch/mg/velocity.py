@@ -58,7 +58,7 @@ from ..fem import (
     dg_lagrange,
 )
 from ..fem.scatter import ScatterAdd
-from ..kernels import GradDivTerm, MergedLevelOperator
+from ..kernels import GradDivTerm, MergedLevelOperator, PatchLUSolve
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import chebyshev, fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
@@ -149,10 +149,11 @@ class VelocityMG:
         self.cdt = mg_dtype() if cycle_dtype is None else cycle_dtype
         #: the storage dtype of the level operators and static patch parts
         self.sdt = mg_store() if store_dtype is None else store_dtype
-        #: the smoother's inner Krylov dtype (defect correction when
-        #: narrower than cdt)
-        self.mdt = (self.cdt if smoother_driver == "chebyshev"
-                    else mg_smooth_dtype() if smooth_dtype is None
+        #: the smoother's dtype: under FGMRES its inner Krylov dtype
+        #: (defect correction when narrower than cdt); under Chebyshev the
+        #: storage dtype of the patch factors, the arithmetic staying in
+        #: cdt (the JAX package's)
+        self.mdt = (mg_smooth_dtype() if smooth_dtype is None
                     else smooth_dtype)
         for dt in (self.cdt, self.sdt, self.mdt):
             if dt not in (torch.float64, torch.float32):
@@ -233,6 +234,22 @@ class VelocityMG:
                     ps, out_mask=lev.mask_flat, device=self.device))
                 self.factor_parts.append(make_patch_factor_parts(ps))
             self.patchsets.append(ps)
+        #: under the Chebyshev driver with the smoother stored in f32 (the
+        #: vectors f64): kernel KL on each patch table, which applies the
+        #: patches' f32 LU factors, as the JAX package stores them (an
+        #: explicit inverse rounded to f32 carries eps32 / nu into
+        #: solutions of size 1 / gamma)
+        self.patch_lu = None
+        if (smoother == "patch" and smoother_driver == "chebyshev"
+                and self.mdt == torch.float32 and self.cdt == real_dtype):
+            if self.patch_composition == "multiplicative":
+                raise ValueError("the f32-stored Chebyshev smoother takes "
+                                 "additive patches only")
+            self.patch_lu = [
+                PatchLUSolve(ps.dofs, ps.nflat,
+                             out_mask=self.levels[l + 1].mask_flat,
+                             device=self.device)
+                for l, ps in enumerate(self.patchsets)]
         self.schoeberl = None
         if transfer_mode == "schoeberl":
             self.schoeberl = [
@@ -365,11 +382,18 @@ class VelocityMG:
                                                                 self.d)
 
     def _apply_flat(self, l, vals, v):
+        op = self.level_ops[l]
         if not isinstance(vals, dict):
-            return self.level_ops[l](vals, v)
-        y = self.level_ops[l](vals["M"], v)
-        return self.graddiv_terms[l](self.gd_factors(l), vals["gamma"], v,
-                                     y, out=y)
+            return op(vals, v)
+        term, B = self.graddiv_terms[l], self.gd_factors(l)
+        if op.takes_epilogue:
+            # two launches: KB's cell stage, then KM with KB's dof stage as
+            # its epilogue
+            return op(vals["M"], v,
+                      graddiv=(term, term.cell_stage(B, vals["gamma"], v)))
+        # three: KM, then KB's two stages on its output, in place
+        y = op(vals["M"], v)
+        return term(B, vals["gamma"], v, y, out=y)
 
     # ------------------------------------------------------------------
     def transfer_setup(self, params, statics=None):
@@ -414,9 +438,10 @@ class VelocityMG:
         entry is {"M": the gamma-free part summed by KA in f64, then
         narrowed to the storage or cycle dtype, "gamma"}; the patch
         inverses and the Jacobi diagonals come from the f64 sums.  Under an
-        f32 cycle the patch inverses and the Schoeberl state are cast to
-        f32 (but for ALFI_TORCH_MG_F64_KEYS), the coarse factor never; the
-        defect-correction smoother's inverses are cast to ``mdt``."""
+        f32 cycle the patch inverses are cast to f32 (but for
+        ALFI_TORCH_MG_F64_KEYS), the coarse factor never; transfer_setup
+        narrows the Schoeberl state; the smoother's inverses are cast to
+        ``mdt`` (FGMRES's defect correction; Chebyshev's storage)."""
         self._check_tf32()
         winds = [None] * self.nlevels
         winds[-1] = u_fine
@@ -469,13 +494,17 @@ class VelocityMG:
                 for l in range(1, self.nlevels)
             ]
         elif self.smoother == "patch":
+            lu = self.patch_lu is not None
             patch_lufacs = [
                 self.factor_parts[l - 1](static["levels"][l - 1],
-                                         N_els[l], params)
+                                         N_els[l], params, invert=not lu)
                 if self.factor_parts[l - 1] is not None and static is not None
-                else self.patch_solvers[l - 1][0](tensors[l])
+                else self.patch_solvers[l - 1][0](tensors[l], invert=not lu)
                 for l in range(1, self.nlevels)
             ]
+            if lu:
+                patch_lufacs = [t.factor(A, self.mdt) for t, A in
+                                zip(self.patch_lu, patch_lufacs)]
         lev0 = self.levels[0]
         A0 = assemble_dense_from_tensors(lev0.form, tensors[0], lev0.mask_u,
                                          facet_tensors=ftensors[0],
@@ -507,13 +536,11 @@ class VelocityMG:
                 (self.level_ops[l].diagonal(level_ops[l]) if not self.split
                  else diags[l]).reshape(-1, self.d)
                 for l in range(1, self.nlevels)]
-        if self.cdt != real_dtype:
-            if "patch_lufacs" not in keys:
-                patch_lufacs = [t.to(self.cdt) for t in patch_lufacs]
-            if schoeberl_state is not None and "schoeberl" not in keys:
-                schoeberl_state = [dict(t, lufac=t["lufac"].to(self.cdt))
-                                   for t in schoeberl_state]
-        if self.mdt != self.cdt:
+        if self.cdt != real_dtype and "patch_lufacs" not in keys:
+            patch_lufacs = [t.to(self.cdt) for t in patch_lufacs]
+        # (the Schoeberl state comes narrowed from transfer_setup: f32 LU
+        # factors under an f32 cycle, but for ALFI_TORCH_MG_F64_KEYS)
+        if self.mdt != self.cdt and self.patch_lu is None:
             patch_lufacs = [t.to(self.mdt) for t in patch_lufacs]
         state = {
             "tensors": tensors,
@@ -537,6 +564,14 @@ class VelocityMG:
         inv = state["patch_lufacs"][l - 1]
         if self.smoother == "jacobi":
             return lambda r: (r / inv).to(r.dtype)
+        if self.patch_lu is not None:
+            table = self.patch_lu[l - 1]
+
+            def pc(r):
+                r0 = r.reshape(-1)
+                return table(inv, r0, r0).reshape(-1, self.d)
+
+            return pc
 
         _, papply = self.patch_solvers[l - 1]
         if self.patch_composition == "multiplicative":

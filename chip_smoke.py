@@ -58,19 +58,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    library call; KM on the AMG fine operator is 3b's "level L2" table
    (the same pattern, checked), not timed again;
 3e. the precision modes' kernels against their plain versions at every
-   table phase 20 drives them at: K1 in f32 at the bench config's
-   smoother tables (out-masked) and Schoeberl tables, levels 2 and 1, and
-   the 3D scale row's smoother tables, levels 2 and 1 (4,913 x 189 at
-   L2), 1e-5 (f32 sums); KM in its three mixed modes (f64 values on f32
+   table phases 17 and 20 drive them at: K1 in f32 at the bench config's
+   and the 3D scale row's smoother tables (out-masked), levels 2 and 1
+   (4,913 x 189 at 3D L2), 1e-5 (f32 sums); KL, the f32 LU solve, at the
+   bench config's Schoeberl tables (2,048 and 512 x 6; the f32 LU factors
+   of the transfer matrices at Re 100's viscosity), 1e-4, and on f64
+   vectors at phase 17's f32-stored smoother tables (overlapping, two
+   launches), 1e-5; KM in its three mixed modes (f64 values on f32
    vectors, f32 values on f64 vectors, f32 on f32) at levels 2 and 1 of
-   both, 1e-6, 1e-13 and 1e-5; KB, the gamma-split grad-div term, masked
-   at the bench config's levels 2 and 1 on f64 and f32 vectors, raw (the
-   Schoeberl transfers') there on f32 vectors, masked at the 3D scale
-   row's levels 2 and 1 on f64 vectors, 1e-13 and 1e-6; besides, K1 f32
-   at the SV 3D L1 table (125 x 1,590) and KB at SV 2D L2, shapes phase
-   20 does not run; two launches bitwise equal; device times, bounds,
-   plain versions and cuSPARSE in the same (KM: the promoted) dtype, for
-   KB on gamma G as CSR;
+   the bench config and the 3D scale row, 1e-6, 1e-13 and 1e-5, and KM
+   with KB's dof stage as its epilogue in the split level apply's modes
+   (store32 and the f32 cycle at the bench config, store32 in 3D); KB's
+   cell stage at the bench config's masked levels 2 and 1 on f64 and f32
+   vectors and at the 3D scale row's on f64 vectors, 1e-13 (both of KB's
+   stages timed beside it, the launches the two-stage design made), and
+   both
+   stages raw (the Schoeberl transfers') on f32 vectors, 1e-6; besides,
+   K1 f32 at the SV 3D L1 table (125 x 1,590) and KB at SV 2D L2, shapes
+   phase 20 does not run; two launches bitwise equal; device times,
+   bounds, plain versions and cuSPARSE in the same (KM: the promoted)
+   dtype (for KB on gamma G as CSR, for KM+KB on the split operator as
+   one CSR matrix), ``torch.linalg.lu_solve`` on the gathered batch for
+   KL;
 4. the port's reference parity: the small config (ldc2d baseN=4 nref=1)
    must take the JAX package's Krylov/Newton counts 8/2, 7/2, 15/3 over
    Re 1/10/100, and with SUPG (shakib) and --restriction 7/2, 7/2, 16/3;
@@ -161,6 +170,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (results/torch_h100/graddiv2d_{pkp0,sv}_jax_cpu.log): patch + transfer
    equal at every gamma, the other rows ">200" where the log says so and
    elsewhere within 10 % or 2 iterations; K1, KM, KA and KG launched;
+   then pkp0's patch + transfer row with the smoother's patch factors
+   stored in f32 (mg_smooth_dtype f32 under the Chebyshev driver: f32 LU
+   factors through KL on f64 vectors), equal to the JAX package's CPU log
+   of the same row (results/torch_h100/graddiv2d_pkp0_smooth32_jax_cpu.log)
+   at every gamma, KL launched at every smoothed level;
 18. the algebraic baselines: alamg (gamma 1e4), simple and lsc (gamma
    0) at the small config over Re 1, 10, 100 with the JAX package's
    Newton counts and Krylov within one per Newton step (alamg: 2 %), and at
@@ -169,8 +183,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    not as the JAX package's CPU logs
    (results/torch_h100/iters_ldc2d_nref2_re100_*_jax_cpu.log) say, with
    their counts by the same rule, or, where every linear solve of the log
-   stops at maxit, with every one of the card's but the last at maxit
-   too (BASELINE_MAXIT says why); the papers' contrast: alamg's Re 1 at
+   stops at maxit (alamg 2,000/4 and lsc 1,500/3), exactly; the papers'
+   contrast: alamg's Re 1 at
    least 3x phase 5's Krylov count, simple's Krylov per Newton at Re 100
    and lsc's at Re 1 above almg's at every Re; n1, kmax, the map's size
    and each mode's peak device memory;
@@ -192,13 +206,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at the f32 cycle's Re 100, where the JAX package's own logs, f64 in
    iters_ldc2d_nref2_re100_jax_cpu.log, miss the gate, its mode's count
    is the bound, and a miss anywhere else fails), with seconds per Re and
-   peak device memory beside f64; (c) the 3D scale row in f64, dc32 and
-   store32, Re 1 -> 10 -> 100, every Re converged, with counts, seconds,
-   peak memory and the memory each built solver holds; (d) the f32 cycle
-   with ALFI_TORCH_MG_F64_KEYS empty (the Schoeberl inverses in f32 too),
-   the bench config warm, Re 1 -> 10, held as (b); K1 in f32 (on the
-   Schoeberl tables too), KM in each mixed mode and KB must have
-   launched; each of phase 3e's rows takes its table's launches here;
+   peak device memory beside f64; the f32 cycle with its Schoeberl state
+   in f32 (LU factors through KL, the JAX package's default); (c) the 3D
+   scale row in f64, dc32 and store32, Re 1 -> 10 -> 100, the f64 counts
+   in each, with seconds, peak memory and the memory each built solver
+   holds; K1 in f32, KL, KM in each mixed mode and with KB's dof stage as
+   its epilogue, and KB must have launched; each of phase 3e's rows takes
+   its table's launches here (phase 17's for the smoother's KL rows);
 
 then print the kernel table as one JSON line (every K1 table of phases
 3 to 3c in the variant its main path calls, and KM and KA of every level
@@ -346,12 +360,11 @@ BASELINE_SMALL = {"alamg": [(330, 2), (358, 2), (781, 3)],
 #: 500, Re 1, the rest of their ladders through the harness, logs under
 #: results/torch_h100/) and the JAX package's CPU logs
 BASELINE_BENCH_RES = {"alamg": [1], "simple": [1, 10, 100], "lsc": [1]}
-#: FGMRES's maxit in every mode: where each linear solve of a JAX log
-#: stops there, the Newton trajectory those unconverged solves drive is
-#: not reproducible bit for bit (the card's scatter-adds are atomic):
-#: lsc at Re 1 took 1,500/3 in three runs on the card and 1,977/4 in a
-#: fourth.  Such a solve is held to: converged as the log says, every
-#: linear solve at maxit but possibly the last.
+#: FGMRES's maxit in every mode.  The JAX logs of alamg and lsc at the
+#: bench config stop every linear solve there (2,000/4 and 1,500/3 at Re
+#: 1); the card's deterministic scatter-adds (fem/scatter.py:ScatterAdd)
+#: repeat those counts run after run, so they are held exactly, as every
+#: other count is
 BASELINE_MAXIT = 500
 #: phase 20: the precision modes' gates against the port's f64 control,
 #: Krylov <= scale * c64 + plus per Re (tests/test_mixed_cycle.py)
@@ -363,12 +376,6 @@ PRECISION_GATES = {"dc32": (1.0, 1), "store32": (1.0, 1),
 #: 9 > 1.10 * 9 + 1).  The gates come from the SUPG ladder at ldc2d
 #: baseN=8 nref=1 (tests/test_mixed_cycle.py), where both packages meet them
 PRECISION_JAX_MISSES = {("cycle32", 100)}
-#: the Re of the f32 cycle with its Schoeberl inverses in f32 too: at Re
-#: 100 that cycle did not finish its solve in 25 minutes on a CPU, where
-#: the JAX package's takes 12/3 (the port's explicit inverses rounded to
-#: f32 against the JAX package's f32 LU factors; alfi_torch/config.py
-#: DEFAULT_F64_KEYS)
-PRECISION_F32_SCHOEBERL_RES = [1, 10]
 #: and the JAX package's CPU logs of the bench config in each mode and in
 #: f64
 PRECISION_LOGS = {
@@ -377,6 +384,13 @@ PRECISION_LOGS = {
     for mode in PRECISION_GATES}
 PRECISION_LOGS["f64"] = os.path.join("results", "torch_h100",
                                      "iters_ldc2d_nref2_re100_jax_cpu.log")
+#: phase 17's grad-div row with the smoother's patch factors stored in f32
+#: (mg_smooth_dtype f32 under the Chebyshev driver): pkp0 patch + transfer
+#: at the Makefile's widths, and the JAX package's CPU log of it
+GRADDIV_F32_KW = dict(dim=2, discretisation="pkp0", baseN=8, nref=2, k=2,
+                      smoother="patch", transfer=True, smoothing=3)
+GRADDIV_F32_LOG = os.path.join("results", "torch_h100",
+                               "graddiv2d_pkp0_smooth32_jax_cpu.log")
 BASELINE_BENCH_LOGS = {
     mode: os.path.join("results", "torch_h100",
                        "iters_ldc2d_nref2_re100_%s_jax_cpu.log" % mode)
@@ -413,7 +427,12 @@ REPLACES = {"K1": PALLAS_GEMV, "KM": XLA_LEVEL_APPLY, "KA": XLA_LEVEL_APPLY,
                   "(_apply_gd), plain XLA; no Pallas kernel",
             "KG": "alfi_tpu/mg/amg.py:239-255 (VelocityAMG._galerkin1, a "
                   "plain-XLA scatter into the dense level-1 matrix; no "
-                  "Pallas kernel)"}
+                  "Pallas kernel)",
+            "KL": "alfi_tpu/mg/schoeberl.py:144-146 (_patch_solve) and "
+                  "alfi_tpu/mg/patches.py:728-730 (build_patch_solver's "
+                  "apply): jax.scipy.linalg.lu_solve on f32 LU factors "
+                  "(alfi_tpu/solvers/batched_lu.py:128-134), plain XLA; no "
+                  "Pallas kernel"}
 
 
 def _median_ms(fn, reps=15, inner=20):
@@ -1354,12 +1373,18 @@ def _check_galerkin(name, vamg, rng, flush):
 
 def _graddiv_log_rows(path):
     """The iteration cells of every run of a grad-div log, by its
-    arguments."""
+    arguments (an environment setting before the command is not part of
+    the key)."""
+    import re
+
     rows, key = {}, None
+    head = re.compile(
+        r"=== (?:\S+=\S+ )*python examples/graddiv\.py (.*) ===$")
     with open(path) as f:
         for line in f:
-            if line.startswith("=== python examples/graddiv.py "):
-                key = line[len("=== python examples/graddiv.py "):-5]
+            found = head.match(line.rstrip("\n"))
+            if found:
+                key = found.group(1)
             elif line.startswith("iters:") and key is not None:
                 rows[key] = [c.strip() for c in line.split(None, 1)[1]
                              .strip().rstrip("\\").split("\t&")]
@@ -1418,7 +1443,7 @@ def _baseline_phase(make, alamg_bench, almg_rows):
     too).  (b) At the bench config, the Re of BASELINE_BENCH_RES, every Re
     converges or not as in the JAX package's CPU logs, to a finite state,
     with their counts by (a)'s rule, or, where every linear solve of the
-    log stops at maxit, by BASELINE_MAXIT's; alamg (gamma = 1e4) takes at
+    log stops at maxit, exactly (BASELINE_MAXIT); alamg (gamma = 1e4) takes at
     least 3x
     phase 5's Krylov count (``almg_rows``) at Re 1 alone, simple's Krylov
     per Newton at Re 100 and lsc's at Re 1 exceed almg's at every Re of
@@ -1434,9 +1459,9 @@ def _baseline_phase(make, alamg_bench, almg_rows):
     def held(mode, counts, want):
         for re, (k, n), (kj, nj) in zip(BENCH_RES, counts, want):
             if kj == BASELINE_MAXIT * nj:
-                # every linear solve of the log stops at maxit: so must
-                # every one of the card's but the last
-                ok = BASELINE_MAXIT * (n - 1) < k <= BASELINE_MAXIT * n
+                # every linear solve of the log stops at maxit: the same
+                # Newton trajectory, exactly (BASELINE_MAXIT)
+                ok = (k, n) == (kj, nj)
             else:
                 tol = max(nj, 0.02 * kj) if mode == "alamg" else nj
                 ok = n == nj and abs(k - kj) <= tol
@@ -1684,9 +1709,9 @@ def _precision_row(name, kernel, fn, plain, library, tol, bound, flush,
     return r
 
 
-def _graddiv_library(term, B, gamma):
-    """gamma * sum_c R_c^T B_c B_c^T R_c with the term's mask in and out,
-    as one CSR matrix for cuSPARSE."""
+def _graddiv_coo(term, B, gamma):
+    """(rows, cols, values) of gamma * sum_c R_c^T B_c B_c^T R_c with the
+    term's mask in and out."""
     import torch
 
     nc, nld, _ = B.shape
@@ -1695,39 +1720,95 @@ def _graddiv_library(term, B, gamma):
     rows = term.gidx.long()[:, :, None].expand(nc, nld, nld)
     cols = term.gidx.long()[:, None, :].expand(nc, nld, nld)
     keep = live[:, :, None] & live[:, None, :]
-    coo = torch.sparse_coo_tensor(
-        torch.stack([rows[keep], cols[keep]]), G[keep],
-        (term.n, term.n)).coalesce()
-    crow = torch._convert_indices_from_coo_to_csr(coo.indices()[0], term.n)
-    return torch.sparse_csr_tensor(crow, coo.indices()[1], coo.values(),
-                                   (term.n, term.n))
+    return rows[keep], cols[keep], G[keep]
 
 
-def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
-    """Phase 3e: the precision modes' kernels at every table phase 20
-    drives them at, each against its plain version on the card, with
-    device times, bounds and library calls (cuSPARSE in the same or the
-    promoted dtype): K1 in f32 at the bench config's smoother and
-    Schoeberl tables (levels 2 and 1) and the 3D scale row's smoother
-    tables (levels 2 and 1); KM in its three mixed modes at both applied
-    levels of each; KB on f64 and f32 vectors at the bench config's
-    masked levels 2 and 1 and on f32 vectors at its raw Schoeberl
-    operators (the f32 cycle's), on f64 vectors at the 3D scale row's
-    masked levels 2 and 1.  Besides, as the Scott-Vogelius shapes, which
-    phase 20 does not run: K1 f32 at SV 3D L1, KB at SV 2D L2.  Each row's
-    ``key`` (configuration, kernel and mode, level) names its table's
-    launches in phase 20.  Returns the result rows."""
+def _csr(rows, cols, vals, shape):
+    """One CSR matrix for cuSPARSE from COO entries (duplicates summed)."""
     import torch
 
-    from alfi_torch.kernels import GatherGemvScatter, GradDivTerm
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                  shape).coalesce()
+    crow = torch._convert_indices_from_coo_to_csr(coo.indices()[0],
+                                                  shape[0])
+    return torch.sparse_csr_tensor(crow, coo.indices()[1], coo.values(),
+                                   shape)
+
+
+def _graddiv_library(term, B, gamma):
+    """gamma * sum_c R_c^T B_c B_c^T R_c with the term's mask in and out,
+    as one CSR matrix for cuSPARSE."""
+    return _csr(*_graddiv_coo(term, B, gamma), (term.n, term.n))
+
+
+def _split_library(op, vals, term, B, gamma):
+    """The split level operator, keep * (M + gamma G) + diag(1 - keep), as
+    one CSR matrix for cuSPARSE (the merged values ``vals`` in their
+    dtype, the grad-div part cast to it)."""
+    import torch
+
+    m = _merged_library_operator(op, vals).to_sparse_coo().coalesce()
+    r, c, g = _graddiv_coo(term, B, gamma)
+    return _csr(torch.cat([m.indices()[0], r]),
+                torch.cat([m.indices()[1], c]),
+                torch.cat([m.values(), g.to(vals.dtype)]), (op.n, op.n))
+
+
+def _kl_row(name, table, A, x, args, tol, flush):
+    """KL on ``table`` with the f32 factors of the f64 matrices ``A``
+    against its plain version, with its bound (the live f32 factor
+    entries, the tables, x and out; two flops a factor entry) and
+    ``torch.linalg.lu_solve`` on the same gathered f32 batch as the
+    library call."""
+    import torch
+
+    fac = table.factor(A)
+    lut, piv = fac["lut"], fac["piv"]
+    b = table.gathered(x).to(lut.dtype)[..., None]
+    parts = table.bound_bytes(itemsize=x.element_size())
+    r = _precision_row(
+        name, "KL", lambda: table(fac, x, *args),
+        lambda: table.plain(fac, x, *args),
+        lambda: torch.linalg.lu_solve(lut.mT, piv, b), tol,
+        _bound_of(parts, 2.0 * parts["factors"] / 4, F32_FLOP_PER_S), flush,
+        None if not table.disjoint else "patch_lu_solve")
+    return r
+
+
+def _precision_kernels(bench, scale, sv2d, sv3d, gd32, rng, flush):
+    """Phase 3e: the precision modes' kernels at every table phases 17
+    and 20 drive them at, each against its plain version on the card,
+    with device times, bounds and library calls (cuSPARSE in the same or
+    the promoted dtype; ``torch.linalg.lu_solve`` for KL): K1 in f32 at
+    the bench config's and the 3D scale row's smoother tables (levels 2
+    and 1); KL, the f32 LU solve, at the bench config's Schoeberl tables
+    (levels 2 and 1, the f32 cycle's) and, on f64 vectors, at the f32
+    Chebyshev smoother's tables of the grad-div study (``gd32``, levels 2
+    and 1); KM in its three mixed modes at both applied levels of the
+    bench config and the 3D scale row, and KM with KB's dof stage as its
+    epilogue in the modes the split level apply runs (store32 f32/f64,
+    the f32 cycle's f32/f32); KB's cell stage on f64 and f32 vectors at
+    the bench config's masked levels 2 and 1, on f64 vectors at the 3D
+    scale row's, and both of KB's stages on f32 vectors at its raw
+    Schoeberl operators (the f32 cycle's).  Besides, as the
+    Scott-Vogelius shapes, which phase 20 does not run: K1 f32 at SV 3D
+    L1, KB's cell stage at SV 2D L2.  Each row's ``key`` (configuration,
+    kernel and mode, level) names its table's launches in phase 17 or 20.
+    Returns the result rows."""
+    import torch
+
+    from alfi_torch.kernels import (
+        GatherGemvScatter,
+        GradDivTerm,
+        PatchLUSolve,
+    )
+    from alfi_torch.mg.patches import static_patch_sum
 
     f32, f64 = torch.float32, torch.float64
     rows = []
-    # K1 f32: the smoothers' tables (out-masked) and the Schoeberl ones
+    # K1 f32: the smoothers' tables (out-masked)
     k1 = [("bench", "smoother", l, bench.vmg.patch_solvers[l - 1][1], "2D")
           for l in (2, 1)]
-    k1 += [("bench", "schoeberl", t.l + 1, t.papply, "2D")
-           for t in reversed(bench.vmg.schoeberl)]
     k1 += [("scale", "smoother", l, scale.vmg.patch_solvers[l - 1][1], "3D")
            for l in (2, 1)]
     k1 += [("sv3d", "smoother", 1, sv3d.vmg.patch_solvers[-1][1], "SV 3D")]
@@ -1756,12 +1837,45 @@ def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
         rows.append(r)
         del A, lib
         torch.cuda.empty_cache()
-    # KM in its three mixed modes
-    for config, vmg, tag in (("bench", bench.vmg, "2D"),
-                             ("scale", scale.vmg, "3D")):
+    # KL: the f32 cycle's Schoeberl solves, on the transfer matrices at Re
+    # 100's viscosity (f32 factors of condition up to gamma / nu: 1e-4),
+    # and the f32 Chebyshev smoother's, on f64 vectors (random diagonally
+    # dominant patch matrices)
+    for t in reversed(bench.vmg.schoeberl):
+        ps = t.patchset
+        table = PatchLUSolve(ps.dofs, ps.nflat, device=bench.vmg.device)
+        A = static_patch_sum(bench._almg_static["schoeberl"][t.l],
+                             {"nu": 0.02, "gamma": 1e4})
+        x = torch.as_tensor(rng.standard_normal(table.n), device=table.device,
+                            dtype=f32)
+        r = _kl_row("KL f32 schoeberl 2D L%d (%d x %d)" % (
+            t.l + 1, table.npatches, table.m), table, A, x, (), 1e-4, flush)
+        r["key"] = ("bench", "KL schoeberl", t.l + 1)
+        rows.append(r)
+    for l in (2, 1):
+        table = gd32.vmg.patch_lu[l - 1]
+        nb, m, _ = table.ashape
+        A = (torch.as_tensor(rng.standard_normal((nb, m, m)),
+                             device=table.device)
+             + m * torch.eye(m, dtype=f64, device=table.device))
+        x = torch.as_tensor(rng.standard_normal(table.n), device=table.device)
+        r = _kl_row("KL f32 on f64 smoother grad-div L%d (%d x %d)" % (
+            l, nb, m), table, A, x, (x,), 1e-5, flush)
+        r["key"] = ("graddiv", "KL smoother", l)
+        rows.append(r)
+    torch.cuda.empty_cache()
+    # KM in its three mixed modes, and with the grad-div epilogue in the
+    # split level apply's modes
+    for config, vmg, tag, epi in (("bench", bench.vmg, "2D",
+                                   ((f32, f64), (f32, f32))),
+                                  ("scale", scale.vmg, "3D", ((f32, f64),))):
         for l in (2, 1):
             op = vmg.level_ops[l]
             dev = op.device
+            lev = vmg.levels[l]
+            term = GradDivTerm(lev.rows.cpu().numpy(), op.n,
+                               keep=lev.mask_flat, device=dev)
+            B = vmg.gd_factors(l)
             vals = torch.as_tensor(rng.standard_normal(op.vshape),
                                    device=dev)
             x = torch.as_tensor(rng.standard_normal(op.n), device=dev)
@@ -1786,11 +1900,36 @@ def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
                     flush, KM_NAME)
                 r["key"] = (config, "KM " + mode, l)
                 rows.append(r)
+                if (vt, xt) in epi:
+                    # the dof stage reads the cell stage's contributions
+                    # (f64, in list order) and the lists' offsets; the
+                    # library call sums gamma G into the same CSR matrix
+                    w = term.cell_stage(B, 1e4, xx)
+                    arg = (term, w)
+                    nc, nld, q = B.shape
+                    parts.update(w=8 * w.numel(), offsets=4 * (term.n + 1))
+                    del lib
+                    lib = _split_library(op, v.to(ct), term, B, 1e4)
+                    r = _precision_row(
+                        "KM+KB %s %s L%d (%d blocks, %d cells x %d)" % (
+                            mode, tag, l, op.pattern.nnzb, nc, nld),
+                        "KM+KB " + mode, lambda: op(v, xx, graddiv=arg),
+                        lambda: op.plain(v, xx, graddiv=arg),
+                        lambda: lib @ xc, tol,
+                        _bound_of(parts,
+                                  2.0 * (op.d * op.d * op.pattern.nnzb
+                                         + nc * nld * q),
+                                  F64_FLOP_PER_S), flush, KM_NAME)
+                    r["key"] = (config, "KM+KB " + mode, l)
+                    rows.append(r)
                 del lib
-            del vals
+            del vals, term
             torch.cuda.empty_cache()
-    # KB, the gamma-split grad-div term, f64 arithmetic: masked (the level
-    # operators') and raw (the Schoeberl transfers')
+    # KB, the gamma-split grad-div term, f64 arithmetic: on the masked
+    # tables (the level operators') the cell stage alone where the level
+    # takes the dof stage as KM's epilogue (above), else both stages, each
+    # with the other's time printed beside it; both stages on the raw
+    # tables (the Schoeberl transfers')
     kb = [("bench", "2D", l, True, (f64, f32)) for l in (2, 1)]
     kb += [("bench", "2D", l, False, (f32,)) for l in (2, 1)]
     kb += [("scale", "3D", l, True, (f64,)) for l in (2, 1)]
@@ -1804,7 +1943,20 @@ def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
                            keep=lev.mask_flat if masked else None,
                            device=dev)
         B = vmg.gd_factors(l)
+        nc, nld, q = B.shape
         lib = _graddiv_library(term, B, 1e4)
+        cells = masked and vmg.level_ops[l].takes_epilogue
+        if cells:
+            # the cell stage alone, w = B_c,i . gamma B_c^T x_c for every
+            # cell entry: one CSR matrix of gamma G_c's rows
+            G = 1e4 * torch.einsum("cip,cjp->cij", B, B)
+            ri = torch.arange(nc * nld, device=dev).reshape(
+                nc, nld)[:, :, None].expand(nc, nld, nld)
+            ci = term.gidx.long()[:, None, :].expand(nc, nld, nld)
+            keep = ci >= 0
+            cell_lib = _csr(ri[keep], ci[keep], G[keep],
+                            (nc * nld, term.n))
+            del G, ri, ci, keep
         for xt in dtypes:
             tol = 1e-13 if xt == f64 else 1e-6
             x = torch.as_tensor(rng.standard_normal(term.n), device=dev,
@@ -1813,46 +1965,74 @@ def _precision_kernels(bench, scale, sv2d, sv3d, rng, flush):
                                 dtype=xt)
             xl, yl = x.to(f64), y.to(f64)
             itemsize = x.element_size()
-            nc, nld, q = B.shape
             live = term.gidx >= 0
-            parts = {"B": 8 * B.numel(), "gidx": 4 * nc * nld,
-                     "lists": 4 * (term.n + 1) + 4 * term.slots.numel(),
-                     "x": itemsize * int(torch.unique(
-                         term.gidx[live]).numel()),
-                     "y": itemsize * term.n, "out": itemsize * term.n}
+            xbytes = itemsize * int(torch.unique(term.gidx[live]).numel())
             dt = "f32" if xt == f32 else "f64"
-            r = _precision_row(
-                "KB %s %s %s L%d (%d cells x %d x q=%d)" % (
-                    dt, "masked" if masked else "raw (Schoeberl)", tag, l,
-                    nc, nld, q), "KB",
-                lambda: term(B, 1e4, x, y), lambda: term.plain(B, 1e4, x, y),
-                lambda: yl + lib @ xl, tol,
-                _bound_of(parts, 4.0 * nc * nld * q, F64_FLOP_PER_S), flush,
-                None)
+            kind = ("masked" if masked else "raw (Schoeberl)")
+            if cells:
+                parts = {"B": 8 * B.numel(), "gidx": 4 * nc * nld,
+                         "x": xbytes, "w": 8 * nc * nld}
+                r = _precision_row(
+                    "KB cell stage %s %s %s L%d (%d cells x %d x q=%d)"
+                    % (dt, kind, tag, l, nc, nld, q), "KB",
+                    lambda: term.cell_stage(B, 1e4, x),
+                    lambda: term.contributions(
+                        B, term._plain_cells(B, 1e4, x)),
+                    lambda: cell_lib @ xl, 1e-13,
+                    _bound_of(parts, 4.0 * nc * nld * q, F64_FLOP_PER_S),
+                    flush, "graddiv_cell_kernel")
+                other = _device_ms(lambda: term(B, 1e4, x, y))
+                print("  both stages (cell + dof kernel, two launches) %s ms"
+                      % _fmt(other), flush=True)
+            else:
+                parts = {"B": 8 * B.numel(), "gidx": 4 * nc * nld,
+                         "lists": 4 * (term.n + 1) + 4 * term.slots.numel(),
+                         "x": xbytes, "y": itemsize * term.n,
+                         "out": itemsize * term.n}
+                r = _precision_row(
+                    "KB %s %s %s L%d (%d cells x %d x q=%d)" % (
+                        dt, kind, tag, l, nc, nld, q), "KB",
+                    lambda: term(B, 1e4, x, y),
+                    lambda: term.plain(B, 1e4, x, y),
+                    lambda: yl + lib @ xl, tol,
+                    _bound_of(parts, 4.0 * nc * nld * q, F64_FLOP_PER_S),
+                    flush, None)
+                if masked:
+                    other = _device_ms(lambda: term.cell_stage(B, 1e4, x),
+                                       only="graddiv_cell_kernel")
+                    print("  the cell stage alone %s ms" % _fmt(other),
+                          flush=True)
             r["key"] = (config, "KB %s%s" % ("" if masked else "schoeberl ",
                                              dt), l)
             rows.append(r)
         del lib, term
+        if cells:
+            del cell_lib
         torch.cuda.empty_cache()
     return rows
 
 
 def _precision_table_launches(vmg):
     """{(kernel and mode, level): launches} of a hierarchy's precision
-    tables since the last reset: K1 in f32 on its smoother and Schoeberl
-    tables, KM per mixed mode, KB on f64 and f32 vectors, masked and on the
-    raw Schoeberl operators (the same keys as phase 3e's rows)."""
+    tables since the last reset: K1 in f32 on its smoother tables, KL on
+    the Schoeberl ones, KM per mixed mode and with the grad-div epilogue,
+    KB's cell stage (masked) on f64 and f32 vectors and both its stages on
+    the raw Schoeberl operators (the same keys as phase 3e's rows)."""
     out = {}
     for l in range(1, vmg.nlevels):
         out["K1 f32 smoother", l] = vmg.patch_solvers[l - 1][1].f32_launched
-        for mode, n in vmg.level_ops[l].mode_launched.items():
+        op = vmg.level_ops[l]
+        for mode, n in op.mode_launched.items():
             out["KM " + mode, l] = n
+        for mode, n in op.gd_launched.items():
+            out["KM+KB " + mode, l] = n
         term = vmg.graddiv_terms[l]
         out["KB f32", l] = 0 if term is None else term.f32_launched
         out["KB f64", l] = 0 if term is None else (term.launched
                                                    - term.f32_launched)
     for t in vmg.schoeberl or ():
-        out["K1 f32 schoeberl", t.l + 1] = t.papply.f32_launched
+        out["KL schoeberl", t.l + 1] = (0 if t.lusolve is None
+                                        else t.lusolve.launched)
         out["KB schoeberl f32", t.l + 1] = (0 if t._gd_term is None
                                             else t._gd_term.f32_launched)
     return out
@@ -1905,15 +2085,14 @@ def _precision_phase(make, scale_build, here):
     -> 10 -> 100: each mode's counts against its JAX CPU log (the same
     Newton counts, Krylov within one per Newton step) and against the f64
     control by the JAX package's gates (dc32 and store32 c64 + 1, the f32
-    cycle 1.10 c64 + 1, per Re; PRECISION_JAX_MISSES); (c) the 3D scale
-    row in f64, dc32 and store32, Re 1 -> 10 -> 100, cold, every Re
-    converged; (d) the f32 cycle with the Schoeberl inverses in f32 too
-    (ALFI_TORCH_MG_F64_KEYS empty, the JAX package's default), the bench
-    config warm to PRECISION_F32_SCHOEBERL_RES, held as (b).  The launch
-    counts are zeroed before (b) and read after (d); K1 in f32, KM in each
-    mixed mode and KB must have launched, K1 in f32 on the Schoeberl
-    tables too.  Returns {(configuration, kernel and mode, level):
-    launches} of phase 3e's rows' tables."""
+    cycle 1.10 c64 + 1, per Re; PRECISION_JAX_MISSES); the f32 cycle runs
+    with the Schoeberl state in f32 (its LU factors, kernel KL), as the
+    JAX package's does; (c) the 3D scale row in f64, dc32 and store32, Re
+    1 -> 10 -> 100, cold, every Re converged.  The launch counts are
+    zeroed before (b) and read after (c); K1 in f32, KL, KM in each mixed
+    mode, KM with the grad-div epilogue and KB must have launched.
+    Returns {(configuration, kernel and mode, level): launches} of phase
+    3e's rows' tables."""
     from alfi_torch import kernels
 
     def hold(mode, res, counts, c64, want, j64):
@@ -1951,7 +2130,6 @@ def _precision_phase(make, scale_build, here):
             launched[key] = launched.get(key, 0) + n
 
     kernels.reset_launch_counts()
-    keys_env = os.environ.get("ALFI_TORCH_MG_F64_KEYS")
     try:
         bench = {}
         for mode in ("f64",) + tuple(PRECISION_GATES):
@@ -1989,31 +2167,18 @@ def _precision_phase(make, scale_build, here):
                      ", ".join("%.3f" % t for t in scale["f64"][1]),
                      peak / 1e9, scale["f64"][2] / 1e9, held / 1e9,
                      scale["f64"][3] / 1e9), flush=True)
-        _set_precision("cycle32")
-        os.environ["ALFI_TORCH_MG_F64_KEYS"] = ""
-        res = PRECISION_F32_SCHOEBERL_RES
-        counts, secs, peak, _, tables = _precision_sweep(
-            "precision bench cycle32, Schoeberl inverses f32", lambda: make(
-                16, 2), res, warm=True)
-        count("bench", tables)
-        want = _log_solves(os.path.join(here, PRECISION_LOGS["cycle32"]))
-        print("precision bench cycle32 with ALFI_TORCH_MG_F64_KEYS empty: "
-              "Krylov/Newton %s (JAX CPU log %s, f64 control %s); s per Re "
-              "%s" % (counts, want[:len(res)], c64[:len(res)],
-                      ", ".join("%.3f" % t for t in secs)), flush=True)
-        hold("cycle32", res, counts, c64, want, j64)
+            if counts != scale["f64"][0]:
+                raise AssertionError("precision 3D scale row %s: %s against "
+                                     "the f64 counts %s"
+                                     % (mode, counts, scale["f64"][0]))
     finally:
         _set_precision("f64")
-        if keys_env is None:
-            os.environ.pop("ALFI_TORCH_MG_F64_KEYS", None)
-        else:
-            os.environ["ALFI_TORCH_MG_F64_KEYS"] = keys_env
-    out = {"K1 f32": kernels.GatherGemvScatter.f32_launches["K1"]}
+    out = {"K1 f32": kernels.GatherGemvScatter.f32_launches["K1"],
+           "KL": kernels.PatchLUSolve.launches["KL"]}
     out.update(("KM " + k, v)
                for k, v in kernels.MergedLevelOperator.mode_launches.items())
+    out.update(kernels.MergedLevelOperator.epilogue_launches)
     out["KB"] = kernels.GradDivTerm.launches["KB"]
-    out["K1 f32 schoeberl"] = sum(n for (c, kind, _), n in launched.items()
-                                  if kind == "K1 f32 schoeberl")
     print("precision phase kernel launches: %s" % out, flush=True)
     for key, n in out.items():
         if n <= 0:
@@ -2022,6 +2187,39 @@ def _precision_phase(make, scale_build, here):
         "%s %s L%d %d" % (k + (n,)) for k, n in sorted(launched.items())),
         flush=True)
     return launched
+
+
+def _graddiv_f32_row(gd32, log_path):
+    """Phase 17's row with the smoother's patch factors stored in f32
+    (``gd32``: the grad-div solver built with mg_smooth_dtype f32, its
+    tables phase 3e checked): CG counts at the eight gamma of the harness
+    equal to the JAX package's CPU log of the same row; KL must have
+    launched on f64 vectors at every smoothed level.  Returns
+    {("graddiv", "KL smoother", level): launches}."""
+    from alfi_torch import kernels
+    from alfi_torch.examples import graddiv
+
+    want = _graddiv_log_rows(log_path)
+    (jax_row,) = want.values()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = []
+    for g in graddiv.GAMMAS:
+        _, its, conv = gd32.solve(g)
+        got.append(str(its) if conv else ">200")
+    tables = {("graddiv", "KL smoother", l + 1): t.mixed_launched
+              for l, t in enumerate(gd32.vmg.patch_lu)}
+    print("grad-div pkp0 patch + transfer, smoother stored in f32 (mdt %s): "
+          "%s (JAX CPU %s) in %.3f s; KL launches per level %s"
+          % (gd32.vmg.mdt, " ".join(got), " ".join(jax_row),
+             time.perf_counter() - t0, tables), flush=True)
+    if got != jax_row:
+        raise AssertionError("grad-div with the smoother stored in f32: %s "
+                             "against the JAX package's %s" % (got, jax_row))
+    if min(tables.values()) <= 0:
+        raise AssertionError("grad-div f32 smoother: KL not launched at "
+                             "every level: %s" % tables)
+    return tables
 
 
 def main(kernels_only=False):
@@ -2056,12 +2254,12 @@ def main(kernels_only=False):
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
 
-    # 2. build (both sources, one nvcc each, started together)
+    # 2. build (the three sources, one nvcc each, started together)
     t0 = time.perf_counter()
     kernels.load_library()
-    print("kernel build: %.2f s (%s, %s)"
-          % (time.perf_counter() - t0, os.path.basename(kernels.SOURCE),
-             os.path.basename(kernels.LEVEL_SOURCE)), flush=True)
+    print("kernel build: %.2f s (%s)"
+          % (time.perf_counter() - t0, ", ".join(
+              os.path.basename(src) for src in kernels.SOURCES)), flush=True)
     for line in kernels.build_log.splitlines():
         if "ptxas info" in line:
             print("  " + line.strip())
@@ -2113,6 +2311,19 @@ def main(kernels_only=False):
     sv3d = timed("SV 3D", lambda: get_solver(
         sv3d_args, ThreeDimLidDrivenCavityProblem(sv3d_args.baseN),
         device=dev))
+    # phase 17's grad-div row with the smoother stored in f32, whose KL
+    # tables phase 3e reads (mdt is fixed when the hierarchy is built)
+    t0 = time.perf_counter()
+    from alfi_torch import config
+    from alfi_torch.graddiv import GradDivSolver
+
+    config.set_mg_smooth_dtype(torch.float32)
+    try:
+        gd32 = GradDivSolver(device=dev, **GRADDIV_F32_KW)
+    finally:
+        config.set_mg_smooth_dtype(torch.float64)
+    print("grad-div solver with the smoother stored in f32 built: %.2f s"
+          % (time.perf_counter() - t0), flush=True)
     # phase 16's multiplicative sweeps, whose colour tables phase 3c reads
     mult = timed("multiplicative", lambda: make(
         16, 2, patch_composition="multiplicative"))
@@ -2194,9 +2405,9 @@ def main(kernels_only=False):
     table.append(_check_galerkin("KA Galerkin bench", alamg_bench.vamg, rng,
                                  flush_buf.zero_))
     torch.cuda.empty_cache()
-    # 3e. the precision modes' kernels (phase 20 drives them): K1 in f32, KM
-    # in its mixed modes, KB
-    precision_rows = _precision_kernels(bench, scale, sv2d, sv3d, rng,
+    # 3e. the precision modes' kernels (phases 17 and 20 drive them): K1 in
+    # f32, KL, KM in its mixed modes and with KB's dof stage, KB
+    precision_rows = _precision_kernels(bench, scale, sv2d, sv3d, gd32, rng,
                                         flush_buf.zero_)
     torch.cuda.empty_cache()
     # the list holds every hierarchy: drop it, so that the solver a later
@@ -2399,10 +2610,15 @@ def main(kernels_only=False):
     del mult, mult3d, solver
     torch.cuda.empty_cache()
 
-    # 17. the grad-div study at the reference's 2D widths
+    # 17. the grad-div study at the reference's 2D widths, and its patch +
+    # transfer row with the smoother stored in f32
     for label, argv, log in GRADDIV_RUNS:
         _graddiv_phase(label, argv, os.path.join(here, log))
         torch.cuda.empty_cache()
+    graddiv_launches = _graddiv_f32_row(gd32,
+                                        os.path.join(here, GRADDIV_F32_LOG))
+    del gd32
+    torch.cuda.empty_cache()
 
     # 18. the algebraic baselines, small and at the bench config
     launched.update((k, v) for k, v in _baseline_phase(
@@ -2418,10 +2634,12 @@ def main(kernels_only=False):
     precision_launches = _precision_phase(
         make, lambda: get_solver(scale_args, ThreeDimLidDrivenCavityProblem(
             scale_args.baseN), device=dev), here)
+    precision_launches.update(graddiv_launches)
     torch.cuda.empty_cache()
 
     sources = {"K1": os.path.relpath(kernels.SOURCE, here),
-               "KM": os.path.relpath(kernels.LEVEL_SOURCE, here)}
+               "KM": os.path.relpath(kernels.LEVEL_SOURCE, here),
+               "KL": os.path.relpath(kernels.LU_SOURCE, here)}
     sources["KA"] = sources["KG"] = sources["KM"]
     entries = []
     for r in table:
@@ -2460,18 +2678,24 @@ def main(kernels_only=False):
     # table in its mode (0 for the Scott-Vogelius shapes, which phase 20
     # does not run)
     for r in precision_rows:
-        use = r["kernel"].split()[0]  # K1, KM or KB
+        use = r["kernel"].split()[0]  # K1, KL, KM, KM+KB or KB
         if use == "K1":
             name = "gather_gemv_scatter f32 %s kernel (%s)" % (
                 r["kernel_path"], r["name"])
+        elif use == "KL":
+            name = "patch_lu_solve, the f32 LU solve (%s)" % r["name"]
         elif use == "KB":
             name = "level_operator gamma-split grad-div term (%s)" % r["name"]
+        elif use == "KM+KB":
+            name = ("level_operator apply with the grad-div term as its "
+                    "epilogue (%s)" % r["name"])
         else:
             name = "level_operator apply, mixed precision (%s)" % r["name"]
         entries.append({
             "name": name, "route": "cuda",
-            "source": sources["K1" if use == "K1" else "KM"],
-            "replaces": REPLACES[use],
+            "source": sources["K1" if use == "K1"
+                              else "KL" if use == "KL" else "KM"],
+            "replaces": REPLACES["KB" if use == "KM+KB" else use],
             "launches": precision_launches.get(r["key"], 0),
             "max_abs_err": r["abs_err"], "ms": r["dev_ms"],
             "plain_ms": r["plain_dev_ms"], "bound_ms": r["bound_ms"],

@@ -7,8 +7,8 @@ card only.
 Twins of ``tests/test_mixed_cycle.py``:
 
 * the state dtypes of each mode: only what the mode narrows is narrowed,
-  the coarse factor and (in the f32 cycle, by default) the Schoeberl
-  inverses stay f64;
+  the coarse factor stays f64, the f32 cycle's Schoeberl state is f32 LU
+  factors;
 * the gamma-split apply of the f32 cycle matches the f64 apply to 1e-5
   and keeps the grad-div term's cancellation on a discretely
   divergence-free field (split < 3e-6, the all-f32 summed apply > 30x
@@ -24,8 +24,9 @@ Against the JAX package, same seeded inputs through both:
   rounding is the cause: the port departs from its own f64 apply by at
   most 1.5 times what the JAX package departs from its own, which is
   past 1e-4 wherever the two differ past it (the sweeps of
-  ``test_torch_precision_solve.py`` hold the counts there); and why the
-  f32 cycle keeps the Schoeberl inverses in f64 by default;
+  ``test_torch_precision_solve.py`` hold the counts there); the f32
+  cycle's Schoeberl solve by f32 LU factors (kernel KL) the same way,
+  with both packages' ALFI_*_MG_F64_KEYS empty;
 * KB's plain version against the JAX dict apply's grad-div part (both
   f64 from the same f64 factors) at 1e-12; the port's mg_store apply
   against the JAX dict apply of the same f32 values and f64 factors at
@@ -118,7 +119,8 @@ def test_config_reads_the_environment(monkeypatch):
         tconfig._mg_dtype = tconfig._mg_store = tconfig._mg_smooth = None
         assert (tconfig.mg_dtype(), tconfig.mg_store(),
                 tconfig.mg_smooth_dtype()) == (F64, F64, F64)
-        assert tconfig.mg_f64_keys() == {"schoeberl"}
+        # none by default, as the JAX package's ALFI_TPU_MG_F64_KEYS
+        assert tconfig.mg_f64_keys() == set()
         tconfig._mg_dtype = tconfig._mg_store = tconfig._mg_smooth = None
         monkeypatch.setenv("ALFI_TORCH_MG_DTYPE", "f32")
         # store and smoother default to the cycle dtype
@@ -151,10 +153,13 @@ def test_velocity_mg_takes_the_modes_as_keywords():
                                                                False)
     v = VelocityMG(s, smooth_dtype=F32, store_dtype=F32)
     assert (v.cdt, v.sdt, v.mdt, v.split) == (F64, F32, F32, True)
-    # under the Chebyshev driver the smoother runs in the cycle dtype
+    # under the Chebyshev driver the smoother runs in the cycle dtype, its
+    # patch factors stored in the smoother dtype (the JAX package's): f32
+    # LU factors, applied by kernel KL on f64 vectors
     v = VelocityMG(s, smoother_driver="chebyshev", cycle="w",
                    smooth_dtype=F32)
-    assert v.mdt == F64
+    assert (v.cdt, v.mdt, v.split) == (F64, F32, False)
+    assert len(v.patch_lu) == v.nlevels - 1
     with pytest.raises(ValueError, match="f32 or f64"):
         VelocityMG(s, cycle_dtype=torch.bfloat16)
 
@@ -203,20 +208,27 @@ def test_store_f32_state_dtypes(mode_of):
 
 def test_f32_cycle_state_dtypes(mode_of, monkeypatch):
     """The f32 cycle casts the patch inverses and the level operators'
-    gamma-free part; the coarse factor and, by default, the Schoeberl
-    inverses stay f64; ALFI_TORCH_MG_F64_KEYS names what stays."""
+    gamma-free part, and stores the Schoeberl patches' f64 LU factors in
+    f32 (kernel KL's state); the coarse factor stays f64;
+    ALFI_TORCH_MG_F64_KEYS names what stays (``schoeberl``: the explicit
+    f64 inverses)."""
     mode_of("cycle32")
     s = _torch_solver(4)
     state, _ = _state(s)
     assert all(t.dtype == F32 for t in state["patch_lufacs"])
     assert all(v["M"].dtype == F32 for v in state["level_ops"][1:])
-    assert all(t["lufac"].dtype == F64 for t in state["schoeberl"])
+    assert all("lufac" not in t and t["lu"]["lut"].dtype == F32
+               for t in state["schoeberl"])
     assert state["coarse_fac"][0].dtype == F64
     monkeypatch.setenv("ALFI_TORCH_MG_F64_KEYS", "patch_lufacs,tensors")
     state, _ = _state(s)
     assert all(t.dtype == F64 for t in state["patch_lufacs"])
     assert all(v["M"].dtype == F64 for v in state["level_ops"][1:])
-    assert all(t["lufac"].dtype == F32 for t in state["schoeberl"])
+    assert all(t["lu"]["lut"].dtype == F32 for t in state["schoeberl"])
+    monkeypatch.setenv("ALFI_TORCH_MG_F64_KEYS", "schoeberl")
+    state, _ = _state(s)
+    assert all("lu" not in t and t["lufac"].dtype == F64
+               for t in state["schoeberl"])
     # and the cycle still maps f64 to f64 through f32
     rv = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (s.Z.V.ndof, 2))) * s.bcset.mask[0]
@@ -374,26 +386,22 @@ def test_solve_A_at_re_100_rounds_as_the_jax_package(mode_of, mode):
 
 def test_f32_schoeberl_inverses_carry_the_f32_cycles_error(mode_of,
                                                           monkeypatch):
-    """Why the f32 cycle keeps the Schoeberl inverses in f64 by default
-    (``alfi_torch/config.py:DEFAULT_F64_KEYS``): with them in f32 too
-    (ALFI_TORCH_MG_F64_KEYS and ALFI_TPU_MG_F64_KEYS empty, the JAX
-    package's default), make_solve_A at nu = 0.02 departs from the f64
-    apply 60 times as far as with them in f64 (6.1e-2 against 1.0e-3),
-    where the JAX package's f32 LU factors depart 9.7e-4: the port's
-    explicit inverses, rounded to f32, carry eps32 / nu into a transfer
-    solve of size 1 / gamma.  Kept in f64, the port rounds as the JAX
-    package does."""
+    """The repair of the f32 Schoeberl solve: with both packages' keys
+    empty (their default), make_solve_A at nu = 0.02 in the f32 cycle
+    departs from the port's own f64 apply by at most 1.5 times what the
+    JAX package's departs from its own, the port applying f32 LU factors
+    by kernel KL's plain version as the JAX package does.  The explicit
+    inverses rounded to f32, which the port applied before (and kept in
+    f64 by default to avoid), departed 6.1e-2, 60 times the JAX package's
+    9.7e-4."""
     mode_of("f64")
     t64, j64 = _solve_A_both(0.02)
     mode_of("cycle32")
     monkeypatch.setenv("ALFI_TPU_MG_F64_KEYS", "")
-    monkeypatch.setenv("ALFI_TORCH_MG_F64_KEYS", "")
+    monkeypatch.delenv("ALFI_TORCH_MG_F64_KEYS", raising=False)
     yt, yj = _solve_A_both(0.02)
-    own_j = _rel(yj, j64)
-    assert _rel(yt, t64) > 20 * own_j
-    monkeypatch.delenv("ALFI_TORCH_MG_F64_KEYS")
-    yt, _ = _solve_A_both(0.02)
-    assert _rel(yt, t64) <= 1.5 * own_j
+    own_t, own_j = _rel(yt, t64), _rel(yj, j64)
+    assert own_t <= 1.5 * own_j, (own_t, own_j)
 
 
 def test_graddiv_term_matches_jax_dict_apply(mode_of):
