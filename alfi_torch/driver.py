@@ -74,13 +74,24 @@ def get_default_parser():
 def get_solver(args, problem, hierarchy_callback=None, *, device="cuda"):
     """The solver of ``args`` (the solver itself rejects what the port
     has not ported yet, naming its ROADMAP.md item); --mkl is accepted
-    and unused, as in the JAX package."""
+    and unused, as in the JAX package.
+
+    ``--ndevices N`` > 1: this process's rank of an N-rank group
+    (``torchrun --nproc-per-node N``; raises outside one, naming it) runs
+    the DistributedSolver over the solver, on ``device`` as
+    ``parallel/sharding.py:make_rank_group`` reads it (``cuda``: a card
+    per rank under NCCL; ``cuda:0``: every rank on one card under gloo;
+    ``cpu``: gloo).  Only rank 0 prints."""
+    verbose = True
+    group = None
     if args.ndevices > 1:
-        raise NotImplementedError(
-            "--ndevices > 1 is not ported yet: ROADMAP.md Queue 1 item 12")
+        from .parallel.sharding import make_rank_group
+
+        group = make_rank_group(args.ndevices, device=device)
+        device, verbose = group.device, group.rank == 0
     solver_t = {"pkp0": ConstantPressureSolver,
                 "sv": ScottVogeliusSolver}[args.discretisation]
-    return solver_t(
+    solver = solver_t(
         problem,
         solver_type=args.solver_type,
         stabilisation_type=args.stabilisation_type,
@@ -99,8 +110,14 @@ def get_solver(args, problem, hierarchy_callback=None, *, device="cuda"):
         rebalance_vertices=args.rebalance,
         high_accuracy=args.high_accuracy,
         hierarchy_callback=hierarchy_callback,
+        verbose=verbose,
         device=device,
     )
+    if group is None:
+        return solver
+    from .parallel.distributed import DistributedSolver
+
+    return DistributedSolver(solver, group)
 
 
 def performance_info(solver):
@@ -158,12 +175,20 @@ def _nearest_full_checkpoint(chkptdir, re_lo, re_hi):
 
 
 def run_solver(solver, res, args):
+    """The continuation over ``res`` with checkpoints.  A distributed
+    solver's ranks all solve; rank 0 alone prints the records and writes
+    the checkpoints (the gathered global state, as a single-device run's)
+    and the VTU files, and the ranks wait for each write."""
+    rank = getattr(solver, "rank", 0)
+    sync = getattr(solver, "barrier", lambda: None)
     problemsize = solver.Z.dim
     outdir = "output/%i/" % problemsize
     chkptdir = "checkpoint/%i/" % problemsize
     if args.clear:
-        shutil.rmtree(chkptdir, ignore_errors=True)
-        shutil.rmtree(outdir, ignore_errors=True)
+        if rank == 0:
+            shutil.rmtree(chkptdir, ignore_errors=True)
+            shutil.rmtree(outdir, ignore_errors=True)
+        sync()
     if args.checkpoint:
         os.makedirs(chkptdir, exist_ok=True)
     results = {}
@@ -222,9 +247,11 @@ def run_solver(solver, res, args):
             results[re] = info_dict
             # never checkpoint a diverged solve: a resumed sweep would
             # skip the failed Re with a poisoned state
-            if args.checkpoint and info_dict.get("converged", True):
+            if (args.checkpoint and info_dict.get("converged", True)
+                    and rank == 0):
                 save_checkpoint(path, z, info_dict)
-        if args.paraview:
+            sync()
+        if args.paraview and rank == 0:
             os.makedirs(outdir, exist_ok=True)
             from .utils.vtk import write_velocity_vtu, write_vtu
 
@@ -235,8 +262,9 @@ def run_solver(solver, res, args):
                 write_velocity_vtu(
                     outdir + "velocity-refined-Re-%s.vtu" % re, vmesh,
                     uvis.cpu().numpy())
-    for re in results:
-        print(results[re])
-    if args.time:
-        performance_info(solver)
+    if rank == 0:
+        for re in results:
+            print(results[re])
+        if args.time:
+            performance_info(solver)
     return results

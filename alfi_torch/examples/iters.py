@@ -13,7 +13,10 @@ Usage (the papers' protocol, on the card):
 dfg read a gmsh file given by ``--mesh``, or generate their mesh without
 one; dfg's generated channel has ``--n`` cells per unit length).
 ``--device`` (default ``cuda``) picks the torch device; ``--device cpu``
-runs the same protocol on the host.
+runs the same protocol on the host.  ``--ndevices N`` runs it distributed
+over the N ranks of ``torchrun --nproc-per-node N`` (``--device cuda``: a
+card per rank; ``--device cuda:0``: every rank on one card, under gloo;
+``--device cpu``: gloo); rank 0 prints.
 """
 
 import math
@@ -81,6 +84,8 @@ def main(argv=None):
         dofs[nref] = solver.Z.dim
         res_tmp = run_solver(solver, res, args)
         results[nref] = {re: res_tmp[re] for re in tableres}
+    if getattr(solver, "rank", 0):
+        return  # a distributed run's tables are rank 0's
 
     def emit(extract):
         """One LaTeX tabular body: header (nref, dofs, Re columns),

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import copy
 from math import factorial
 
 import numpy as np
@@ -43,3 +44,12 @@ class CellGeometry:
         ref = torch.as_tensor(np.asarray(ref_pts), dtype=real_dtype,
                               device=self.J.device)
         return self.v0[:, None, :] + torch.einsum("cde,qe->cqd", self.J, ref)
+
+    def restricted(self, cells):
+        """A copy of the geometry of the cells ``cells`` (an int tensor on
+        its device), in that order (the distributed solver's rank-local
+        cells)."""
+        geom = copy.copy(self)
+        for name in ("v0", "J", "jinv", "detj", "vol", "h"):
+            setattr(geom, name, getattr(self, name)[cells])
+        return geom

@@ -22,6 +22,8 @@ grad-div G, advection N) are closed forms of that residual's Jacobian.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from ..config import real_dtype
@@ -98,6 +100,25 @@ class NSForm:
         #: optional extra residual hook: fn(z, params) -> (Sv, Sq),
         #: added by :meth:`residual` (the solver's stabilisation)
         self.stabilisation = None
+
+    def restricted(self, cells, cd_v):
+        """A copy of this form over the cells ``cells`` (an int tensor on
+        its device), in that order, whose velocity dofs are numbered by
+        ``cd_v`` (len(cells), nloc_v): the distributed solver's rank-local
+        form.  Its per-cell methods (``cell_residual``, the element
+        tensors, ``graddiv_factors``, ``forcing``,
+        ``pressure_mass_inverse``) run on those cells alone; the global
+        assembly (``residual`` and the apply methods) is not its."""
+        form = copy.copy(self)
+        form.geom = self.geom.restricted(cells)
+        form.wdet, form.gtest = self.wdet[cells], self.gtest[cells]
+        form.cd_v, form.cd_q = cd_v, None
+        form._scatter_v = form._scatter_q = None
+        form.xq = None if self.xq is None else self.xq[cells]
+        form._static = form._gd_factors = None
+        form._forcing_cache = (None, None)
+        form.stabilisation = None
+        return form
 
     # ------------------------------------------------------------------
     # per-cell kernels (batched over the leading cell axis)

@@ -94,7 +94,7 @@ class NavierStokesSolver:
         if rebalance_vertices:
             raise NotImplementedError(
                 "rebalance_vertices is not ported yet: ROADMAP.md Queue 1 "
-                "item 12")
+                "item 12b")
         if stabilisation_type == "none":
             stabilisation_type = None
         if stabilisation_type not in (None, "supg", "gls", "burman"):
@@ -431,9 +431,16 @@ class NavierStokesSolver:
         if self.verbose:
             print(msg)
 
-    def solve(self, re):
+    def solve(self, re, hooks=None):
         """Solve at Reynolds number ``re`` (continuation from the current
-        state), mirroring alfi/solver.py:257-303."""
+        state), mirroring alfi/solver.py:257-303.
+
+        ``hooks``: what the Newton loop runs on, by the methods
+        ``_newton_pieces``, ``_solve_norm``, ``_shift_pressure``,
+        ``_to_local`` and ``_to_global`` (a DistributedSolver: its rank's
+        arrays and reductions); none: this solver's own.  The solver's
+        state stays the global one."""
+        h = self if hooks is None else hooks
         self.z_last = self.z
         self.message(GREEN % ("Solving for Re = %s" % re))
         if re == 0:
@@ -454,21 +461,19 @@ class NavierStokesSolver:
             self.message("  %3d SNES Function norm %14.12e" % (it, fnorm))
 
         tol = self.tolerances
-        # transfer operators depend only on (nu, gamma): build once per Re
-        tstate = self._transfer_setup(params)
+        residual, linear, residual_ngd = h._newton_pieces(params)
         # the first linear step builds the kernel and initialises cuBLAS
         # and cuSOLVER: attribute it to a warm-up event so that KSPSolve
         # stays a per-iteration quantity
-        residual_t = timed_function("SNESFunctionEval")(
-            lambda zz: self.residual_masked(zz, params))
-        linear_t = timed_function("KSPSolve", first_to="Warmup")(
-            lambda zz, FF: self._linear_step(zz, FF, params, tstate))
+        residual_t = timed_function("SNESFunctionEval")(residual)
+        linear_t = timed_function("KSPSolve", first_to="Warmup")(linear)
         with timed_region("SNESSolve"):
             z, ninfo = newton(
                 residual_t, linear_t,
-                self.z, maxit=20, rtol=tol["snes_rtol"],
+                h._to_local(self.z), maxit=20, rtol=tol["snes_rtol"],
                 atol=tol["snes_atol"], stol=tol["snes_stol"],
-                monitor=monitor if self.verbose else None)
+                monitor=monitor if self.verbose else None,
+                norm=h._solve_norm)
         elapsed = _time.perf_counter() - start
         self.message(GREEN % (
             "Nonlinear solve %s in %d iterations (%s)" % (
@@ -476,25 +481,22 @@ class NavierStokesSolver:
                 ninfo.nonlinear_iter, ninfo.reason)))
 
         if self.nsp:
-            u, p = z
-            pint = float(self.form.pressure_integral(p))
-            z = (u, p - pint / self.area)
+            z = h._shift_pressure(z)
         if ninfo.converged:
-            self.z = z
+            self.z = h._to_global(z)
         else:
             # keep the last CONVERGED state as the continuation iterate:
             # carrying a diverged (possibly NaN) z forward poisons every
             # later Re step
-            z = self.z = self.z_last
+            self.z = self.z_last
+            z = h._to_local(self.z)
 
         # gamma-free residual sanity check (alfi/solver.py:282-291)
-        F_ngd = self.residual_masked(z, dict(params, gamma=0.0))
-        F = self.residual_masked(z, params)
-        self.residual_no_graddiv = float(tnorm(F_ngd))
+        self.residual_no_graddiv = float(h._solve_norm(residual_ngd(z)))
         self.message(BLUE % ("Residual without grad-div term: %.14e"
                              % self.residual_no_graddiv))
         self.message(BLUE % ("Residual with grad-div term:    %.14e"
-                             % float(tnorm(F))))
+                             % float(h._solve_norm(residual(z)))))
 
         linear_its = ninfo.linear_iter
         nonlinear_its = max(1, ninfo.nonlinear_iter)
@@ -512,6 +514,32 @@ class NavierStokesSolver:
             "converged": ninfo.converged,
         }
         return (self.z, info_dict)
+
+    # the Newton loop's pieces on this solver's own arrays (solve's hooks)
+    def _newton_pieces(self, params):
+        """(residual(z), linear(z, F), gamma-free residual(z)) at
+        ``params``; the transfer operators depend only on (nu, gamma):
+        built once per Re."""
+        tstate = self._transfer_setup(params)
+        params_ngd = dict(params, gamma=0.0)
+        return (lambda zz: self.residual_masked(zz, params),
+                lambda zz, FF: self._linear_step(zz, FF, params, tstate),
+                lambda zz: self.residual_masked(zz, params_ngd))
+
+    def _solve_norm(self, v):
+        return tnorm(v)
+
+    def _shift_pressure(self, z):
+        """The state with its pressure's mean removed."""
+        u, p = z
+        pint = float(self.form.pressure_integral(p))
+        return (u, p - pint / self.area)
+
+    def _to_local(self, z):
+        return z
+
+    def _to_global(self, z):
+        return z
 
 
 class ConstantPressureSolver(NavierStokesSolver):

@@ -55,10 +55,41 @@ def _get(buf, j, like):
     return out if isinstance(like, tuple) else out[0]
 
 
-def _buf_dots(buf, w, n):
-    """dots[i] = <buf[i], w> for i < n, as one (n,) tensor."""
+def _buf_dots(buf, w, n, ctx=None):
+    """dots[i] = <buf[i], w> for i < n, as one (n,) tensor (through
+    ``ctx`` when one is given)."""
+    if ctx is not None:
+        return ctx.buf_dots(buf, w, n)
     return sum(bl[:n].reshape(n, -1) @ wl.reshape(-1)
                for bl, wl in zip(buf, leaves(w)))
+
+
+class ShardDotContext:
+    """The inner products of a distributed solve: owner-weighted local
+    dots (every dof that several ranks hold counts once, on its owner),
+    summed over the ranks in rank order by ``group.sum_ordered``
+    (``alfi_torch/parallel/sharding.py``), so that every rank sees the
+    same bits (the JAX package's ``ShardDotContext``).  ``weight``: 0/1
+    owner weights with the vectors' structure, each leaf broadcasting
+    against its vector's."""
+
+    def __init__(self, weight, group):
+        self.weight = weight
+        self.group = group
+
+    def dot(self, a, b):
+        loc = sum(torch.sum(wl * x * y) for wl, x, y in
+                  zip(leaves(self.weight), leaves(a), leaves(b)))
+        return self.group.sum_ordered(loc)
+
+    def norm(self, a):
+        return torch.sqrt(self.dot(a, a))
+
+    def buf_dots(self, buf, w, n):
+        loc = sum(bl[:n].reshape(n, -1) @ (wt * wl).reshape(-1)
+                  for bl, wl, wt in zip(buf, leaves(w),
+                                        leaves(self.weight)))
+        return self.group.sum_ordered(loc)
 
 
 def _buf_axpy(buf, coef, w):
@@ -70,7 +101,7 @@ def _buf_axpy(buf, coef, w):
 
 
 def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
-           restart=30, project=None):
+           restart=30, project=None, ctx=None):
     """Right-preconditioned flexible GMRES.
 
     Parameters
@@ -81,6 +112,8 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
     project : optional nullspace projector applied to operator outputs
         (constant-pressure mode removal, the MatNullSpace analogue of
         alfi/problem.py:33-38).
+    ctx : optional :class:`ShardDotContext`: the norms and Gram-Schmidt
+        dots of a distributed solve (none: the plain ones).
 
     Returns
     -------
@@ -112,24 +145,27 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
     def opA(v):
         return project(A(v))
 
+    def _norm(v):
+        return tnorm(v) if ctx is None else ctx.norm(v).to(vdt)
+
     # zero initial guess: the residual IS b — no operator application
     # spent before the Krylov loop
     r0 = b if zero_guess else tsub(b, opA(x0))
-    rnorm0 = tnorm(r0)
+    rnorm0 = _norm(r0)
     target = None if fixed else max(rtol * float(rnorm0), atol)
 
     def cgs2(V, w, n):
         """Classical Gram-Schmidt with one re-orthogonalisation pass."""
-        h1 = _buf_dots(V, w, n)
+        h1 = _buf_dots(V, w, n, ctx)
         w = _buf_axpy(V, h1, w)
-        h2 = _buf_dots(V, w, n)
+        h2 = _buf_dots(V, w, n, ctx)
         w = _buf_axpy(V, h2, w)
         return w, h1 + h2
 
     def cycle(x, total_it, r=None):
         if r is None:
             r = tsub(b, opA(x))
-        beta = tnorm(r)
+        beta = _norm(r)
         V = _stack_zeros(b, m + 1)
         _set(V, 0, tscale(1.0 / (beta + _EPS), r))
         Z = _stack_zeros(b, m)
@@ -145,7 +181,7 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
             _set(Z, j, z)
             w = opA(z)
             w, h = cgs2(V, w, j + 1)  # orthogonalise against V[0..j]
-            hj1 = tnorm(w)
+            hj1 = _norm(w)
             _set(V, j + 1, tscale(1.0 / (hj1 + _EPS), w))
             hcol = torch.zeros((m + 1,), dtype=vdt, device=ref.device)
             hcol[:j + 1] = h

@@ -34,17 +34,19 @@ class NewtonInfo:
 
 
 def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
-           stol=1e-6, dtol=1e4, monitor=None):
+           stol=1e-6, dtol=1e4, monitor=None, norm=tnorm):
     """Solve residual(z) = 0.
 
     residual(z)            -> BC-row-masked residual (u, p)
     linear_solve(z, F)     -> (dz, linear_iters) solving J(z) dz = -F with
                               dz = 0 on constrained rows
+    norm(v)                -> the norm of the tests (a distributed solve's
+                              owner-weighted one, the same on every rank)
     """
     z = z0
     info = NewtonInfo()
     F = residual(z)
-    fnorm = float(tnorm(F))
+    fnorm = float(norm(F))
     fnorm0 = fnorm
     info.fnorm_history.append(fnorm)
     if monitor:
@@ -58,7 +60,7 @@ def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
         z = taxpy(1.0, dz, z)
         info.nonlinear_iter = it
         F = residual(z)
-        fnorm = float(tnorm(F))
+        fnorm = float(norm(F))
         info.fnorm_history.append(fnorm)
         if monitor:
             monitor(it, fnorm)
@@ -74,8 +76,8 @@ def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
         if fnorm <= rtol * fnorm0:
             info.converged, info.reason = True, "rtol"
             return z, info
-        snorm = float(tnorm(dz))
-        znorm = float(tnorm(z))
+        snorm = float(norm(dz))
+        znorm = float(norm(z))
         if snorm <= stol * znorm:
             info.converged, info.reason = True, "stol"
             return z, info

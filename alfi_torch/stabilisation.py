@@ -62,6 +62,12 @@ class ShakibSUPG:
         overrides with the domain-averaged frozen-wind speed)."""
         return 0.0
 
+    def aux_partial(self, w_loc, detj, owned):
+        """A rank's partial sum for ``aux`` (the distributed solver sums it
+        over the ranks and divides by the domain measure); None: no
+        reduction needed (Shakib)."""
+        return None
+
     def _beta_batch(self, u_q, h, wdet, params, aux):
         nu = params["nu"]
         h2 = (h ** 2)[:, None]
@@ -362,6 +368,17 @@ class TurekSUPG(ShakibSUPG):
             "cq,cq->", self._wdet,
             torch.sqrt(torch.einsum("cqd,cqd->cq", w_qq, w_qq))
         ) / self._domain_measure
+
+    def aux_partial(self, w_loc, detj, owned):
+        """The owned cells' part of the w_avg numerator, from the frozen
+        wind's cell values ``w_loc`` (nc, nl, d), ``detj`` (nc,) and the
+        owned-cell mask ``owned`` (nc,)."""
+        tv = self.form.tab_v
+        w_q = torch.einsum("ql,cld->cqd", tv.phi, w_loc)
+        wdet = tv.w[None, :] * detj[:, None]
+        s = torch.einsum("cq,cq->c", wdet,
+                         torch.sqrt(torch.einsum("cqd,cqd->cq", w_q, w_q)))
+        return torch.sum(torch.where(owned, s, 0.0))
 
     def _beta_batch(self, u_q, h, wdet, params, aux):
         Re = self.char_LU / params["nu"]

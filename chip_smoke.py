@@ -213,13 +213,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    holds; K1 in f32, KL, KM in each mixed mode and with KB's dof stage as
    its epilogue, and KB must have launched; each of phase 3e's rows takes
    its table's launches here (phase 17's for the smoother's KL rows);
+21. the distributed almg solve (``alfi_torch/parallel/``): the bench
+   config, warm, Re 1 -> 10 -> 100, through ``DistributedSolver`` at (a)
+   world size 1 under NCCL in this process and (b) world size 2 under
+   gloo with both ranks on ``cuda:0`` (spawned, with a time limit of
+   their own), against phase 5's single-device run (its sweep, state and
+   a timed linear step; its peak memory from phase 20's f64 bench run):
+   22/7 on every rank, the gathered state within 1e-10 (u) and 1e-8 (p)
+   of the single device's, every rank-local K1, KM and KA table launched
+   in the sweep; s per Re, the peak memory per rank and the collectives,
+   and of one linear step the ms per Krylov iteration and the
+   collectives' share by tag (the interface exchange, the dots, the
+   coarse grid); (c) rank 0 of 2 then holds K1, KM and KA on its local
+   tables against their plain versions (the rows of ``_check_kernel`` and
+   ``_check_merged``); then ``dryrun_multichip(2, device="cuda")`` prints
+   its ok line, and its SUPG Re=1000 Newton step must take the FGMRES
+   count of the same step on one device, its state within 1e-7 (u) and
+   1e-5 (p) (``alfi_torch.parallel.dryrun.DRYRUN_TOL``);
+
+each phase prints its seconds, and a line before the kernel table all of
+them;
 
 then print the kernel table as one JSON line (every K1 table of phases
 3 to 3c in the variant its main path calls, and KM and KA of every level
 table, with the launches of the phase that drives it: 7 for the 2D
 tables, 6 for nref=3, 9 and 10 for the 3D ones, 11 and 12 for the
-Scott-Vogelius ones, 16 for the colour tables, 18 for the Galerkin map)
-and, last, the
+Scott-Vogelius ones, 16 for the colour tables, 18 for the Galerkin map,
+21 for rank 0's local tables) and, last, the
 result line ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when CUDA is unavailable or
 the ``alfi_torch`` package is not beside this file.
@@ -401,6 +421,13 @@ ADJOINT_RESID_TOL, ADJOINT_TOL = 1e-6, 1e-5
 #: almg's adjoint Krylov count of the JAX package on the CPU at ldc2d
 #: baseN=4 nref=1 (tests/test_torch_adjoint.py holds the port to it there)
 ADJOINT_ALMG_JAX_SMALL = 10
+#: phase 21, the distributed solve: the gathered state against the
+#: single-device one (relative norms, the rule of
+#: tests/test_torch_distributed.py), and the time limit of each spawned
+#: rank group (seconds); the dryrun's Newton step is held to one device's
+#: by ``alfi_torch.parallel.dryrun.DRYRUN_TOL``
+DIST_U_TOL, DIST_P_TOL = 1e-10, 1e-8
+DIST_TIMEOUT = 300
 REL_TOL = 1e-13
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 #: f64 FLOP/s outside the tensor cores, which the kernel uses
@@ -736,11 +763,19 @@ def _check_merged(name, vmg, l, rng, flush):
     merged operator), KM at half and twice its lanes, and the blocked
     route beside it: the fused kernel over the cell blocks (K2) plus, with
     facets, over the facet blocks.  Returns the (KM, KA) result dicts."""
+    return _check_merged_op(name, vmg.level_ops[l],
+                            vmg.levels[l].rows.cpu().numpy(),
+                            vmg.facet_rows[l], rng, flush)
+
+
+def _check_merged_op(name, op, rows, frows, rng, flush):
+    """:func:`_check_merged` on the merged operator ``op`` whose cell (and
+    facet) blocks have the flat-row tables ``rows`` (and ``frows``, or
+    None), host arrays."""
     import torch
 
     from alfi_torch.kernels import GatherGemvScatter
 
-    op = vmg.level_ops[l]
     dev = op.device
     T = torch.as_tensor(rng.standard_normal(op.cell_shape), device=dev)
     F = (None if op.facet_shape is None else
@@ -833,11 +868,10 @@ def _check_merged(name, vmg, l, rng, flush):
     # the blocked route on the same blocks: K2 over the cells, then the
     # facet blocks through the same kernel (as a second masked launch)
     keep = op.keep
-    blocked = [(GatherGemvScatter(vmg.levels[l].rows.cpu().numpy(), op.n,
-                                  "K2", in_mask=keep, out_mask=keep,
-                                  device=dev), T)]
+    blocked = [(GatherGemvScatter(rows, op.n, "K2", in_mask=keep,
+                                  out_mask=keep, device=dev), T)]
     if F is not None:
-        blocked.append((GatherGemvScatter(vmg.facet_rows[l], op.n, "K2",
+        blocked.append((GatherGemvScatter(frows, op.n, "K2",
                                           in_mask=keep, out_mask=keep,
                                           device=dev), F))
     blocked_ms = []
@@ -2092,7 +2126,9 @@ def _precision_phase(make, scale_build, here):
     zeroed before (b) and read after (c); K1 in f32, KL, KM in each mixed
     mode, KM with the grad-div epilogue and KB must have launched.
     Returns {(configuration, kernel and mode, level): launches} of phase
-    3e's rows' tables."""
+    3e's rows' tables, and the f64 bench run's peak device memory above
+    what was allocated before its build (phase 21's single-device
+    figure)."""
     from alfi_torch import kernels
 
     def hold(mode, res, counts, c64, want, j64):
@@ -2186,7 +2222,7 @@ def _precision_phase(make, scale_build, here):
     print("precision phase launches per table: %s" % ", ".join(
         "%s %s L%d %d" % (k + (n,)) for k, n in sorted(launched.items())),
         flush=True)
-    return launched
+    return launched, bench["f64"][2]
 
 
 def _graddiv_f32_row(gd32, log_path):
@@ -2222,6 +2258,231 @@ def _graddiv_f32_row(gd32, log_path):
     return tables
 
 
+# ----------------------------------------------------------------------
+# phase 21: the distributed almg solve
+# ----------------------------------------------------------------------
+def _dist_run(group, kernel_rows=False):
+    """The bench config through the DistributedSolver on this rank of
+    ``group``: the solver built fresh with the peak memory reset, a
+    warm-up at Re 1, the sweep Re 1 -> 10 -> 100 with the launch counts
+    reset (each rank-local K1, KM and KA table's launches read after it),
+    the peak bytes over what was resident, the gathered state; then one
+    linear step of the Re=100 solve from the Re=10 state with the
+    collectives timed (each synchronised: their share of the step by
+    tag).  ``kernel_rows``: then K1, KM and KA on this rank's
+    tables against their plain versions (the kernel line's rows)."""
+    import numpy as np
+    import torch
+
+    from alfi_torch import kernels
+    from alfi_torch.parallel.distributed import DistributedSolver
+    from alfi_torch.parallel.dryrun import ldc_solver
+
+    dev = group.device
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = ldc_solver(dev, baseN=16, nref=2)
+    dist = DistributedSolver(solver, group)
+    torch.cuda.synchronize(dev)
+    built = time.perf_counter() - t0
+
+    # warm-up, one Newton step at Re 1: every first call (the kernels'
+    # tables, cuBLAS, cuSOLVER, the gather tables) at a third of a solve's
+    # cost; then the sweep from rest with the counts reset
+    t0 = time.perf_counter()
+    solver.advect_val, solver.nu_val = 1.0, solver.char_L * solver.char_U
+    dist.newton_step(dist.shard_state(solver.z), solver.params())
+    torch.cuda.synchronize(dev)
+    warm = time.perf_counter() - t0
+    solver.z = solver.bcset.apply(solver.Z.zero(dev))
+    solver.z_last = solver.z
+    kernels.reset_launch_counts()
+    group.calls.clear()
+    rows, _ = _solve_sweep(dist, BENCH_RES)
+    calls = dict(group.calls)
+    tables = (
+        [("K1 smoother L%d" % l, "K1", t)
+         for l, t in enumerate(dist.patch_tables, 1)]
+        + [("K1 schoeberl L%d" % (l + 1), "K1", t)
+           for l, t in enumerate(dist.sch_tables)]
+        + [("level L%d" % l, k, dist.lv[l].op) for l in
+           range(1, dist.nlevels) for k in ("KM", "KA")])
+    launches = {name + ("" if k == "K1" else " " + k):
+                (t.launched if k == "K1" else t.launched[k])
+                for name, k, t in tables}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    state = tuple(x.cpu().numpy() for x in solver.z)
+    # one linear step of the Re=100 solve from the Re=10 state
+    params = solver.params()
+    z = dist.shard_state(solver.z_last)
+    tstate = dist.transfer_setup(params)
+    F, _ = dist.residual(z, params)
+    group.timing = True
+    group.seconds.clear()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, its = dist.linear_step(z, F, params, tstate)
+    torch.cuda.synchronize(dev)
+    step = (time.perf_counter() - t0, its, dict(group.seconds))
+    group.timing = False
+    out = {"rank": group.rank, "size": group.size, "device": str(dev),
+           "backend": group.backend, "rows": rows, "warm": warm,
+           "built": built, "peak": peak, "state": state, "calls": calls,
+           "launches": launches, "step": step, "entries": []}
+    if not kernel_rows:
+        return out
+    rng = np.random.default_rng(0)
+    flush = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device=dev)
+    tag = "rank %d of %d" % (group.rank, group.size)
+    for name, k, t in tables:
+        if k == "KA":
+            continue
+        if k == "K1":
+            checked = _check_kernel("%s %s" % (name, tag), t, rng,
+                                    flush.zero_, bare_only=True)
+        else:
+            lv = dist.lv[int(name[-1])]
+            checked = _check_merged_op("%s %s" % (name, tag), t,
+                                       lv.rows[:lv.mco].cpu().numpy(), None,
+                                       rng, flush.zero_)
+        for r in checked:
+            use = r["kernel"] if r["kernel"] in ("KM", "KA") else "K1"
+            key = name + ("" if use == "K1" else " " + use)
+            if use == "K1":
+                label = ("gather_gemv_scatter %s kernel (%s %s, %d x %d, "
+                         "bare)" % (r["kernel"], name, tag, r["shape"][0],
+                                    r["shape"][1]))
+            else:
+                p = t.pattern
+                label = ("level_operator %s (%s, %s, %d blocks of %dx%d)"
+                         % ({"KM": "apply", "KA": "assembly"}[use],
+                            name, tag, p.nnzb, p.d, p.d))
+            out["entries"].append({
+                "name": label, "route": "cuda",
+                "source": "alfi_torch/csrc/" + (
+                    "gather_gemv_scatter.cu" if use == "K1"
+                    else "level_operator.cu"),
+                "replaces": REPLACES[use], "launches": launches[key],
+                "max_abs_err": r["abs_err"], "ms": r["dev_ms"],
+                "plain_ms": r["plain_dev_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_dev_ms"]})
+    return out
+
+
+def _ws2_rank(group):
+    """Phase 21b's rank function (spawned: module level): rank 0 also
+    checks its tables' kernels."""
+    return _dist_run(group, kernel_rows=group.rank == 0)
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-300))
+
+
+def _check_dist(label, res, single):
+    """A distributed run's counts must be BENCH_COUNTS, its state within
+    DIST_U_TOL / DIST_P_TOL of the single-device one, and every rank-local
+    K1, KM and KA table must have launched in its sweep; prints its line."""
+    rows = res["rows"]
+    krylov = sum(r[1] for r in rows)
+    newton = sum(r[2] for r in rows)
+    eu = _rel(res["state"][0], single["state"][0])
+    ep = _rel(res["state"][1], single["state"][1])
+    t_lin, its, secs = res["step"]
+    print("%s (rank %d of %d, %s, %s): Krylov %d, Newton %d, s per Re %s "
+          "(sweep %.3f s, warm-up %.3f s, built %.3f s), peak %.3f GB; u "
+          "rel %.2e, p rel %.2e against the single device; collectives in "
+          "the sweep %s; linear step %d its, %.2f ms per Krylov iteration "
+          "with the collectives synchronised, of which %s"
+          % (label, res["rank"], res["size"], res["device"], res["backend"],
+             krylov, newton, ", ".join("%.3f" % r[3] for r in rows),
+             sum(r[3] for r in rows), res["warm"], res["built"],
+             res["peak"] / 1e9, eu, ep, res["calls"], its,
+             1e3 * t_lin / its,
+             ", ".join("%s %.1f%%" % (k, 100.0 * v / t_lin)
+                       for k, v in sorted(secs.items()))), flush=True)
+    if (krylov, newton) != BENCH_COUNTS:
+        raise AssertionError("%s: counts %d/%d, expected %d/%d"
+                             % ((label, krylov, newton) + BENCH_COUNTS))
+    if not (eu <= DIST_U_TOL and ep <= DIST_P_TOL):
+        raise AssertionError("%s: state differs from the single device (u "
+                             "%.2e, p %.2e)" % (label, eu, ep))
+    idle = [k for k, v in res["launches"].items() if v <= 0]
+    if idle:
+        raise AssertionError("%s: rank-local tables never launched: %s"
+                             % (label, idle))
+
+
+def _dist_phase(dev, single):
+    """Phase 21: the bench config through the DistributedSolver at world
+    size 1 (NCCL, this process) and 2 (gloo, both ranks on cuda:0,
+    spawned), each against the single device's run of the same config
+    (``single``: phase 5's rows, warm-up, linear step and state, phase
+    20's f64 peak); then the dryrun twin on two ranks of the card, held to
+    the same Newton step on one device.  Returns the kernel line's rows of
+    rank 0 of 2."""
+    import torch.distributed
+
+    from alfi_torch.parallel import make_rank_group
+    from alfi_torch.parallel.dryrun import (
+        DRYRUN_TOL,
+        dryrun_multichip,
+        dryrun_reference,
+        spawn_ranks,
+    )
+
+    t_phase = time.perf_counter()
+    rows = single["rows"]
+    t_lin, its = single["step"]
+    print("distributed phase, single device (phase 5; peak: phase 20's f64 "
+          "bench): Krylov %d, Newton %d, s per Re %s (sweep %.3f s, warm-up "
+          "%.3f s), peak %.3f GB; linear step %d its, %.2f ms per Krylov "
+          "iteration"
+          % (sum(r[1] for r in rows), sum(r[2] for r in rows),
+             ", ".join("%.3f" % r[3] for r in rows), sum(r[3] for r in rows),
+             single["warm"], single["peak"] / 1e9, its, 1e3 * t_lin / its),
+          flush=True)
+    # (a) world size 1, NCCL, in this process
+    group = make_rank_group(1, device="cuda")
+    try:
+        _check_dist("world size 1", _dist_run(group), single)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    # (b) world size 2, gloo, both ranks on cuda:0 (rank 0 checks its
+    # tables' kernels after its sweep)
+    res = spawn_ranks(_ws2_rank, 2, device="cuda:0", timeout=DIST_TIMEOUT,
+                      threads=0)
+    for r in res:
+        _check_dist("world size 2", r, single)
+    for a, b in zip(res[0]["state"], res[1]["state"]):
+        if not (a == b).all():
+            raise AssertionError("world size 2: the ranks' gathered states "
+                                 "differ")
+    # the dryrun's SUPG Re=1000 Newton step, against the same step on one
+    # device
+    dry = dryrun_multichip(2, device="cuda", timeout=DIST_TIMEOUT)
+    state, its = dryrun_reference(dev)
+    eu = _rel(dry[0]["state"][0], state[0])
+    ep = _rel(dry[0]["state"][1], state[1])
+    print("dryrun against one device: fgmres iters %d (one device %d), u rel "
+          "%.2e, p rel %.2e" % (dry[0]["its"], its, eu, ep), flush=True)
+    if dry[0]["its"] != its:
+        raise AssertionError("dryrun: %d FGMRES iterations, one device %d"
+                             % (dry[0]["its"], its))
+    if not (eu <= DRYRUN_TOL[0] and ep <= DRYRUN_TOL[1]):
+        raise AssertionError("dryrun: state differs from one device's (u "
+                             "%.2e, p %.2e)" % (eu, ep))
+    print("distributed phase: %.1f s" % (time.perf_counter() - t_phase),
+          flush=True)
+    return res[0]["entries"]
+
+
 def main(kernels_only=False):
     import torch
 
@@ -2244,6 +2505,17 @@ def main(kernels_only=False):
 
     warnings.filterwarnings("ignore", message="Sparse")
     dev = torch.device("cuda")
+    t_start = t_mark = time.perf_counter()
+    phase_seconds = []
+
+    def phase_done(label):
+        """Print the seconds since the last phase ended (and in all)."""
+        nonlocal t_mark
+        now = time.perf_counter()
+        phase_seconds.append((label, now - t_mark))
+        print("phase %s: %.1f s (%.1f s in all)"
+              % (label, now - t_mark, now - t_start), flush=True)
+        t_mark = now
 
     # 1. the card
     smi = subprocess.run(
@@ -2347,6 +2619,8 @@ def main(kernels_only=False):
                 for t in reversed(vmg.schoeberl) if t.l + 1 in levels]
         return out
 
+    phase_done("1-2 (the card, the kernel build, the solvers)")
+
     # 3. the fused kernel vs its plain version on the 2D main-path tables
     ops2d = tables(head.vmg, (2, 1))
     ops2d += [("K1 smoother nref3", big.vmg.patch_solvers[-1][1], None)]
@@ -2419,6 +2693,7 @@ def main(kernels_only=False):
     torch.cuda.empty_cache()
     print("device memory allocated after the kernel rows: %.3f GB"
           % (torch.cuda.memory_allocated() / 1e9), flush=True)
+    phase_done("3 (the kernel rows)")
     if kernels_only:
         return
 
@@ -2440,11 +2715,14 @@ def main(kernels_only=False):
     print("small config with SUPG and restriction: counts equal the JAX "
           "package's: %s" % counts, flush=True)
 
+    phase_done("4")
+
     # 5. the bench config
     t0 = time.perf_counter()
     bench.solve(1)
     torch.cuda.synchronize()
-    print("warm-up Re=1: %.3f s" % (time.perf_counter() - t0), flush=True)
+    warm = time.perf_counter() - t0
+    print("warm-up Re=1: %.3f s" % warm, flush=True)
     bench.z = bench.bcset.apply(bench.Z.zero(dev))
     bench.z_last = bench.z
     kernels.reset_launch_counts()
@@ -2465,11 +2743,21 @@ def main(kernels_only=False):
                              "the main path")
     _check_levels("bench config", bench, launches)
 
-    # where the time goes: one Newton linear step of the Re=100 solve
-    # (from the Re=10 state) under torch.profiler
+    # phase 21's single-device reference: this sweep, its state, and one
+    # linear step of the Re=100 solve (from the Re=10 state), timed
     params = bench.params()
     z = bench.z_last
     F = bench.residual_masked(z, params)
+    tstate = bench._transfer_setup(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, its = bench._linear_step(z, F, params, tstate)
+    torch.cuda.synchronize()
+    single = {"rows": bench_rows, "warm": warm,
+              "step": (time.perf_counter() - t0, int(its)),
+              "state": tuple(x.cpu().numpy() for x in bench.z)}
+    del tstate
+    # where the time goes: the same linear step under torch.profiler
     _profile_linear_step(bench)
     # the Jacobian action is torch.func.jvp of the residual, which
     # evaluates the residual again on every call
@@ -2482,6 +2770,8 @@ def main(kernels_only=False):
     print("Jacobian action (jvp): %.3f ms per call; masked residual: "
           "%.3f ms per call" % (ms_jvp, ms_res), flush=True)
 
+    phase_done("5")
+
     # 6. nref=3
     kernels.reset_launch_counts()
     _, t_big = _solve_sweep(big, [1, 10])
@@ -2491,12 +2781,16 @@ def main(kernels_only=False):
     del big
     torch.cuda.empty_cache()
 
+    phase_done("6")
+
     # 7. the headline protocol through the driver
     per_table = _driver_sweep("headline protocol", head, head_args,
                               HEADLINE_JAX, HEADLINE_EXACT, 41474)
     launched.update((k, v) for k, v in per_table.items() if v)
     del head, bench
     torch.cuda.empty_cache()
+
+    phase_done("7")
 
     # 8. 3D parity at the small cavity, [P2+FB]^3 and [P1+FB]^3
     for k, expected in sorted(CAVITY3D_COUNTS.items(), reverse=True):
@@ -2515,6 +2809,8 @@ def main(kernels_only=False):
                  type(small.vmg.prolongs[0]).__name__, counts), flush=True)
     del small
 
+    phase_done("8")
+
     # 9. the 3D scale row at full width (this slice's main path)
     per_table = _driver_sweep("3D scale row", scale, scale_args,
                               SCALE_JAX, SCALE_EXACT, SCALE_DOFS)
@@ -2522,12 +2818,16 @@ def main(kernels_only=False):
     del scale
     torch.cuda.empty_cache()
 
+    phase_done("9")
+
     # 10. [P1+FB]^3 on the 3D step's gmsh mesh
     per_table = _driver_sweep("3D step", step, step_args, STEP_JAX,
                               (1, 10), STEP_DOFS)
     launched.update((k, v) for k, v in per_table.items() if v)
     del step
     torch.cuda.empty_cache()
+
+    phase_done("10")
 
     # 11. the second paper's headline protocol, Scott-Vogelius with
     # Burman, through the driver; the velocity of every Re divergence-free
@@ -2555,6 +2855,8 @@ def main(kernels_only=False):
     del sv2d
     torch.cuda.empty_cache()
 
+    phase_done("11")
+
     # 12. Scott-Vogelius in 3D (macrostar patches of m = 1590)
     per_table = _driver_sweep(
         "SV 3D", sv3d, sv3d_args, SV3D_JAX, tuple(SV3D_JAX), SV3D_DOFS,
@@ -2563,15 +2865,21 @@ def main(kernels_only=False):
     del sv3d
     torch.cuda.empty_cache()
 
+    phase_done("12")
+
     # 13. the direct modes at the bench config, against lu and phase 5
     _direct_phase(make, bench_u)
     torch.cuda.empty_cache()
+
+    phase_done("13")
 
     # 14. the MMS convergence studies through the port's harness
     for label, argv, counts_log, orders_log, div_tol in MMS_RUNS:
         _mms_phase(label, argv, os.path.join(here, counts_log),
                    os.path.join(here, orders_log), div_tol)
         torch.cuda.empty_cache()
+
+    phase_done("14")
 
     # 15. the DFG cylinder through the driver
     from alfi_torch.problems import DfgBenchmarkProblem
@@ -2584,6 +2892,8 @@ def main(kernels_only=False):
     launched.update((k, v) for k, v in per_table.items() if v)
     del dfg
     torch.cuda.empty_cache()
+
+    phase_done("15")
 
     # 16. the multiplicative sweeps: the colour tables on the main path
     for label, solver, expected in (("multiplicative", mult, MULT_JAX),
@@ -2610,6 +2920,8 @@ def main(kernels_only=False):
     del mult, mult3d, solver
     torch.cuda.empty_cache()
 
+    phase_done("16")
+
     # 17. the grad-div study at the reference's 2D widths, and its patch +
     # transfer row with the smoother stored in f32
     for label, argv, log in GRADDIV_RUNS:
@@ -2620,22 +2932,38 @@ def main(kernels_only=False):
     del gd32
     torch.cuda.empty_cache()
 
+    phase_done("17")
+
     # 18. the algebraic baselines, small and at the bench config
     launched.update((k, v) for k, v in _baseline_phase(
         make, alamg_bench, bench_rows).items() if v)
     del alamg_bench
     torch.cuda.empty_cache()
 
+    phase_done("18")
+
     # 19. the adjoint and visprolong at the bench config
     _adjoint_phase(make, parser)
     torch.cuda.empty_cache()
 
+    phase_done("19")
+
     # 20. the precision modes at the bench config and the 3D scale row
-    precision_launches = _precision_phase(
+    precision_launches, single["peak"] = _precision_phase(
         make, lambda: get_solver(scale_args, ThreeDimLidDrivenCavityProblem(
             scale_args.baseN), device=dev), here)
     precision_launches.update(graddiv_launches)
     torch.cuda.empty_cache()
+
+    phase_done("20")
+
+    # 21. the distributed almg solve (torch.distributed), world sizes 1, 2
+    dist_entries = _dist_phase(dev, single)
+    torch.cuda.empty_cache()
+    phase_done("21")
+    print("seconds per phase: %s" % ", ".join(
+        "%s %.1f" % (label.split()[0], t) for label, t in phase_seconds),
+        flush=True)
 
     sources = {"K1": os.path.relpath(kernels.SOURCE, here),
                "KM": os.path.relpath(kernels.LEVEL_SOURCE, here),
@@ -2700,6 +3028,9 @@ def main(kernels_only=False):
             "max_abs_err": r["abs_err"], "ms": r["dev_ms"],
             "plain_ms": r["plain_dev_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_dev_ms"]})
+    # the rank-local tables of phase 21 (rank 0 of 2), with the launches
+    # of that rank's sweep
+    entries += dist_entries
     for kernel in KERNEL_OF_PATH.values():
         if not any(" %s kernel " % kernel in e["name"] for e in entries):
             raise AssertionError("the main path launched no table through "

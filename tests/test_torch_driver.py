@@ -8,8 +8,10 @@ uniform, SUPG shakib, --restriction), f64 on the CPU:
 * checkpoints cross both ways: the port's run_solver loads the JAX
   package's, and the JAX package's loads the port's, solving nothing;
 * --paraview writes one VTU file per Re;
-* every choice the port does not have yet (item 12's --ndevices > 1 and
-  --rebalance) raises NotImplementedError, and every choice it has builds
+* --ndevices N > 1 outside an N-rank group raises, naming torchrun; a
+  2-rank run of the iters harness prints the single-device counts;
+* every choice the port does not have yet (item 12b's --rebalance)
+  raises NotImplementedError, and every choice it has builds
   a solver (SV, bary, macrostar, Burman, the direct and AMG modes,
   --nref-vis, --mkl accepted and unused);
 * the recovery code, with a stubbed ``newton`` or ``solve`` (twins of
@@ -240,13 +242,61 @@ def test_performance_info_lists_the_solve_events(sweeps, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--ndevices", "2"],
     ["--rebalance"],
 ], ids=lambda e: " ".join(e))
 def test_unported_choices_raise(extra):
     args = _args(tdriver, extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         tdriver.get_solver(args, TorchLDC(4), device="cpu")
+
+
+def test_ndevices_outside_a_group_raises(monkeypatch):
+    """--ndevices 2 outside a 2-rank group: refused, naming torchrun (the
+    twin of make_device_mesh's truncation refusal)."""
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    args = _args(tdriver, ["--ndevices", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        tdriver.get_solver(args, TorchLDC(4), device="cpu")
+
+
+ITERS_ARGV = ["--problem", "ldc2d", "--discretisation", "pkp0", "--mh",
+              "uniform", "--baseN", "4", "--nref-start", "1", "--nref-end",
+              "1", "--re-max", "10", "--device", "cpu"]
+
+
+def _records(text):
+    """(Re, linear_iter, nonlinear_iter) of each record run_solver
+    printed."""
+    import re
+
+    return [tuple(int(x) for x in m) for m in re.findall(
+        r"'Re': (\d+).*?'linear_iter': (\d+), 'nonlinear_iter': (\d+)",
+        text)]
+
+
+def test_two_rank_driver_run_prints_the_single_device_counts():
+    """The iters harness with --ndevices 2 on two spawned gloo ranks
+    (baseN=4, nref=1, Re 1 -> 10): rank 0 prints the single-device run's
+    counts and tables, rank 1 prints nothing."""
+    import contextlib
+    import io
+
+    from alfi_torch.examples import iters
+    from alfi_torch.parallel.dryrun import driver_rank, spawn_ranks
+
+    out = spawn_ranks(driver_rank, 2, args=(ITERS_ARGV + ["--ndevices", "2"],),
+                      device="cpu", timeout=300)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        iters.main(ITERS_ARGV)
+    single = buf.getvalue()
+    assert _records(single) == _records(out[0]) != []
+    assert [r for r in _records(single) if r[0] == 10] != []
+    tables = [line for line in single.splitlines() if "&" in line]
+    assert tables[:2] == [line for line in out[0].splitlines()
+                          if "&" in line][:2]
+    assert out[1] == ""
 
 
 @pytest.mark.parametrize("extra", [
@@ -364,7 +414,7 @@ PORTED_ITEMS = ("10h",)
 
 @pytest.mark.parametrize("kw,item", [
     ({"nref_vis": 1}, "10h"),
-    ({"rebalance_vertices": True}, "12"),
+    ({"rebalance_vertices": True}, "12b"),
 ], ids=lambda e: str(e))
 def test_solver_kwargs_raise_off_their_defaults(kw, item):
     """A kwarg of a ROADMAP item still to port raises naming it; one of a
