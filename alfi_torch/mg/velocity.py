@@ -63,6 +63,7 @@ from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import chebyshev, fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
 from ..stabilisation import BurmanStabilisation, make_stabilisation
+from ..utils.events import host_read, span, spanned
 from .patches import (
     FacetPatchTables,
     assemble_patch_matrices,
@@ -381,6 +382,7 @@ class VelocityMG:
         return self._apply_flat(l, vals, v.reshape(-1)).reshape(lev.V.ndof,
                                                                 self.d)
 
+    @spanned("alfi.level_apply")
     def _apply_flat(self, l, vals, v):
         op = self.level_ops[l]
         if not isinstance(vals, dict):
@@ -396,6 +398,7 @@ class VelocityMG:
         return term(B, vals["gamma"], v, y, out=y)
 
     # ------------------------------------------------------------------
+    @spanned("alfi.transfer_setup")
     def transfer_setup(self, params, statics=None):
         """Schoeberl transfer factorisations — depend only on (nu, gamma),
         so the solver computes them ONCE per Reynolds solve (the
@@ -422,6 +425,7 @@ class VelocityMG:
                      else [t.static_ops() for t in self.schoeberl])
         return {"levels": levels, "schoeberl": schoeberl}
 
+    @spanned("alfi.mg_setup")
     def setup(self, u_fine, params, schoeberl_state, static, p_fine=None):
         """Build the per-Newton-step state: winds, tensors, patch
         inverses (or Jacobi diagonals), coarse factorisation (the split
@@ -441,94 +445,116 @@ class VelocityMG:
         f32 cycle the patch inverses are cast to f32 (but for
         ALFI_TORCH_MG_F64_KEYS), the coarse factor never; transfer_setup
         narrows the Schoeberl state; the smoother's inverses are cast to
-        ``mdt`` (FGMRES's defect correction; Chebyshev's storage)."""
+        ``mdt`` (FGMRES's defect correction; Chebyshev's storage).
+
+        Spans: ``alfi.mg_setup.tensors`` (winds, cell and facet tensors),
+        ``alfi.mg_setup.patch_inverse`` (the patch contraction and its
+        inverses or LU factors: K3), ``alfi.mg_setup.coarse_factor`` (the
+        dense coarse matrix and its LU, in place) and
+        ``alfi.mg_setup.level_assemble`` (KA)."""
         self._check_tf32()
-        winds = [None] * self.nlevels
-        winds[-1] = u_fine
-        for l in range(self.nlevels - 2, -1, -1):
-            winds[l] = self.injects[l].apply(winds[l + 1])
-        if self.stab is not None:
-            if p_fine is None:
-                raise ValueError("the stabilised level operators need "
-                                 "p_fine")
-            press = [None] * self.nlevels
-            press[-1] = p_fine
+        with span("alfi.mg_setup.tensors"):
+            winds = [None] * self.nlevels
+            winds[-1] = u_fine
             for l in range(self.nlevels - 2, -1, -1):
-                press[l] = press[l + 1][self.c2f_cells[l]].mean(dim=1)
-            # the frozen (z_last) wind, injected per level like the live one
-            fwinds = [None] * self.nlevels
-            fwinds[-1] = params["wind"]
-            for l in range(self.nlevels - 2, -1, -1):
-                fwinds[l] = self.injects[l].apply(fwinds[l + 1])
-        tensors, N_els, M_els = [], [], []
-        for l in range(self.nlevels):
-            form = self.levels[l].form
-            K_el, G_el = form._static_velocity_tensors()
-            N_el = form.advection_element_tensors(winds[l])
+                winds[l] = self.injects[l].apply(winds[l + 1])
             if self.stab is not None:
-                N_el = N_el + self.stab[l].velocity_tensors_hook(
-                    (winds[l], press[l]), dict(params, wind=fwinds[l]))
-            M_el = params["nu"] * K_el + params["advect"] * N_el
-            tensors.append(M_el + params["gamma"] * G_el)
-            N_els.append(N_el)
-            M_els.append(M_el if self.split else None)
-        ftensors = [None] * self.nlevels
-        if self.stab_facet is not None:
-            # per-level Burman facet Jacobians at the injected winds,
-            # advect-scaled like the cell stabilisation terms; the patch
-            # matrices from the whole cell tensors plus the facet terms
-            ftensors = [
-                (params["advect"]
-                 * self.stab_facet[l].facet_velocity_tensors(winds[l],
-                                                             params)
-                 ).contiguous()
-                for l in range(self.nlevels)
-            ]
-            patch_lufacs = [
-                patch_inverses(
-                    assemble_patch_matrices(self.patchsets[l - 1],
-                                            tensors[l])
-                    + contract_patch_facet_tensors(
-                        self.patch_facet_tabs[l - 1], ftensors[l])
-                ).contiguous()
-                for l in range(1, self.nlevels)
-            ]
-        elif self.smoother == "patch":
-            lu = self.patch_lu is not None
-            patch_lufacs = [
-                self.factor_parts[l - 1](static["levels"][l - 1],
-                                         N_els[l], params, invert=not lu)
-                if self.factor_parts[l - 1] is not None and static is not None
-                else self.patch_solvers[l - 1][0](tensors[l], invert=not lu)
-                for l in range(1, self.nlevels)
-            ]
-            if lu:
-                patch_lufacs = [t.factor(A, self.mdt) for t, A in
-                                zip(self.patch_lu, patch_lufacs)]
-        lev0 = self.levels[0]
-        A0 = assemble_dense_from_tensors(lev0.form, tensors[0], lev0.mask_u,
-                                         facet_tensors=ftensors[0],
-                                         facet_rows=self.facet_rows[0])
-        # level 0 is solved densely and never applied
+                if p_fine is None:
+                    raise ValueError("the stabilised level operators need "
+                                     "p_fine")
+                press = [None] * self.nlevels
+                press[-1] = p_fine
+                for l in range(self.nlevels - 2, -1, -1):
+                    press[l] = press[l + 1][self.c2f_cells[l]].mean(dim=1)
+                # the frozen (z_last) wind, injected per level like the
+                # live one
+                fwinds = [None] * self.nlevels
+                fwinds[-1] = params["wind"]
+                for l in range(self.nlevels - 2, -1, -1):
+                    fwinds[l] = self.injects[l].apply(fwinds[l + 1])
+            tensors, N_els, M_els = [], [], []
+            for l in range(self.nlevels):
+                form = self.levels[l].form
+                K_el, G_el = form._static_velocity_tensors()
+                N_el = form.advection_element_tensors(winds[l])
+                if self.stab is not None:
+                    N_el = N_el + self.stab[l].velocity_tensors_hook(
+                        (winds[l], press[l]), dict(params, wind=fwinds[l]))
+                M_el = params["nu"] * K_el + params["advect"] * N_el
+                tensors.append(M_el + params["gamma"] * G_el)
+                N_els.append(N_el)
+                M_els.append(M_el if self.split else None)
+            ftensors = [None] * self.nlevels
+            if self.stab_facet is not None:
+                # per-level Burman facet Jacobians at the injected winds,
+                # advect-scaled like the cell stabilisation terms
+                ftensors = [
+                    (params["advect"]
+                     * self.stab_facet[l].facet_velocity_tensors(winds[l],
+                                                                 params)
+                     ).contiguous()
+                    for l in range(self.nlevels)
+                ]
+        with span("alfi.mg_setup.patch_inverse"):
+            if self.stab_facet is not None:
+                # the patch matrices from the whole cell tensors plus the
+                # facet terms
+                patch_lufacs = [
+                    patch_inverses(
+                        assemble_patch_matrices(self.patchsets[l - 1],
+                                                tensors[l])
+                        + contract_patch_facet_tensors(
+                            self.patch_facet_tabs[l - 1], ftensors[l])
+                    ).contiguous()
+                    for l in range(1, self.nlevels)
+                ]
+            elif self.smoother == "patch":
+                lu = self.patch_lu is not None
+                patch_lufacs = [
+                    self.factor_parts[l - 1](static["levels"][l - 1],
+                                             N_els[l], params, invert=not lu)
+                    if (self.factor_parts[l - 1] is not None
+                        and static is not None)
+                    else self.patch_solvers[l - 1][0](tensors[l],
+                                                      invert=not lu)
+                    for l in range(1, self.nlevels)
+                ]
+                if lu:
+                    patch_lufacs = [t.factor(A, self.mdt) for t, A in
+                                    zip(self.patch_lu, patch_lufacs)]
+        with span("alfi.mg_setup.coarse_factor"):
+            lev0 = self.levels[0]
+            A0 = assemble_dense_from_tensors(lev0.form, tensors[0],
+                                             lev0.mask_u,
+                                             facet_tensors=ftensors[0],
+                                             facet_rows=self.facet_rows[0])
+            # level 0 is solved densely and never applied; its LU
+            # overwrites A0
+            coarse_fac = coarse_factor(A0)
         keys = mg_f64_keys() if self.cdt != real_dtype else set()
-        if not self.split:
-            level_ops = [None] + [
-                self.level_assemble(l, tensors[l], ftensors[l])
-                for l in range(1, self.nlevels)]
-        else:
-            # the narrowed stream: the storage dtype, or under an f32 cycle
-            # the cycle dtype unless the keys keep the level operators
-            store = self.sdt
-            if self.cdt != real_dtype:
-                store = (real_dtype if keys & {"tensors", "ftensors",
-                                               "level_ops"} else self.cdt)
-            level_ops, diags = [None], [None]
-            for l in range(1, self.nlevels):
-                M = self.level_assemble(l, M_els[l], ftensors[l])
-                if self.smoother == "jacobi":
-                    diags.append(self._split_diagonal(l, M, params["gamma"]))
-                level_ops.append({"M": M.to(store), "gamma": params["gamma"]})
-            M = None  # the f64 values: not kept past their narrowing
+        with span("alfi.mg_setup.level_assemble"):
+            if not self.split:
+                level_ops = [None] + [
+                    self.level_assemble(l, tensors[l], ftensors[l])
+                    for l in range(1, self.nlevels)]
+            else:
+                # the narrowed stream: the storage dtype, or under an f32
+                # cycle the cycle dtype unless the keys keep the level
+                # operators
+                store = self.sdt
+                if self.cdt != real_dtype:
+                    store = (real_dtype if keys & {"tensors", "ftensors",
+                                                   "level_ops"}
+                             else self.cdt)
+                level_ops, diags = [None], [None]
+                for l in range(1, self.nlevels):
+                    M = self.level_assemble(l, M_els[l], ftensors[l])
+                    if self.smoother == "jacobi":
+                        diags.append(self._split_diagonal(l, M,
+                                                          params["gamma"]))
+                    level_ops.append({"M": M.to(store),
+                                      "gamma": params["gamma"]})
+                M = None  # the f64 values: not kept past their narrowing
         if self.smoother == "jacobi":
             # the operator diagonals, read off the merged f64 values (split:
             # before they are narrowed, with the grad-div part's added)
@@ -547,7 +573,7 @@ class VelocityMG:
             "ftensors": ftensors,
             "level_ops": level_ops,
             "patch_lufacs": patch_lufacs,
-            "coarse_fac": coarse_factor(A0),
+            "coarse_fac": coarse_fac,
             "schoeberl": schoeberl_state,
         }
         if self.smoother_driver == "chebyshev":
@@ -560,21 +586,20 @@ class VelocityMG:
         inverse, in one call of kernel K1; or the multiplicative sweep,
         one K1 call per colour visit and a KM residual update between
         visits (the sweep's x is zero on masked dofs); or, for the Jacobi
-        smoother, r / diag (diag 1 on masked dofs)."""
+        smoother, r / diag (diag 1 on masked dofs).  Every form runs
+        inside the span ``alfi.patch_apply``."""
         inv = state["patch_lufacs"][l - 1]
         if self.smoother == "jacobi":
-            return lambda r: (r / inv).to(r.dtype)
-        if self.patch_lu is not None:
+            def pc(r):
+                return (r / inv).to(r.dtype)
+        elif self.patch_lu is not None:
             table = self.patch_lu[l - 1]
 
             def pc(r):
                 r0 = r.reshape(-1)
                 return table(inv, r0, r0).reshape(-1, self.d)
-
-            return pc
-
-        _, papply = self.patch_solvers[l - 1]
-        if self.patch_composition == "multiplicative":
+        elif self.patch_composition == "multiplicative":
+            _, papply = self.patch_solvers[l - 1]
             vals = state["level_ops"][l]
             keep = self.levels[l].keep
 
@@ -583,15 +608,15 @@ class VelocityMG:
                 x = papply(inv, r0, lambda v: self._apply_flat(l, vals, v))
                 return torch.where(keep, x, r0).reshape(-1, self.d).to(
                     r.dtype)
+        else:
+            _, papply = self.patch_solvers[l - 1]
 
-            return pc
+            def pc(r):
+                # inverses kept in f64 under an f32 cycle apply in f64
+                r0 = r.reshape(-1).to(inv.dtype)
+                return papply(inv, r0, r0).reshape(-1, self.d).to(r.dtype)
 
-        def pc(r):
-            # inverses kept in f64 under an f32 cycle apply in f64
-            r0 = r.reshape(-1).to(inv.dtype)
-            return papply(inv, r0, r0).reshape(-1, self.d).to(r.dtype)
-
-        return pc
+        return spanned("alfi.patch_apply")(pc)
 
     def _estimate_lmax(self, l, state, k=10):
         """The largest eigenvalue of the preconditioned level operator,
@@ -628,9 +653,10 @@ class VelocityMG:
             y = H.T @ (H @ x)
             n = torch.linalg.norm(y)
             x = y / (n + 1e-300)
-        return float(torch.sqrt(n))
+        return host_read(torch.sqrt(n))
 
     # ------------------------------------------------------------------
+    @spanned("alfi.coarse_solve")
     def _coarse_solve(self, state, r):
         """The f64 coarse factor applied at its boundary, in r's dtype."""
         lev0 = self.levels[0]
@@ -639,6 +665,7 @@ class VelocityMG:
         mask = lev0.mask(r.dtype)
         return x.reshape(-1, self.d) * mask + (1.0 - mask) * r
 
+    @spanned("alfi.smooth")
     def _smooth(self, l, state, b, x0):
         """Fixed-iteration level smoother: FGMRES(smoothing) + PC
         (ksp_convergence_test skip), or Chebyshev(smoothing) + PC for the
@@ -666,6 +693,7 @@ class VelocityMG:
                       rtol=0.0, atol=-1.0, maxit=m, restart=m)
         return x
 
+    @spanned("alfi.prolong")
     def _prolong(self, l, state, xc):
         """Correction prolongation coarse level l -> l+1, in xc's dtype."""
         if self.schoeberl is None:
@@ -675,6 +703,7 @@ class VelocityMG:
         xf = xf.to(xc.dtype)
         return self.levels[l + 1].mask(xf.dtype) * xf
 
+    @spanned("alfi.restrict")
     def _restrict(self, l, state, rf):
         """Residual restriction level l+1 -> l: the Schoeberl adjoint only
         behind --restriction, else the standard adjoint (reference
@@ -701,6 +730,7 @@ class VelocityMG:
             x = x + self._prolong(l - 1, state, xc)
         return self._smooth(l, state, b, x)
 
+    @spanned("alfi.fmg")
     def fmg(self, state, b):
         """Full multigrid (pc_mg_type full): restrict the rhs to every
         level, coarse-solve, then per level prolong + one V-cycle."""
@@ -726,6 +756,7 @@ class VelocityMG:
             ncoarse = 2 if self.cycle == "w" else 1
 
             def cycle(rv):
-                return self.vcycle(self.nlevels - 1, state, rv, None,
-                                   ncoarse=ncoarse)
+                with span("alfi.fmg"):
+                    return self.vcycle(self.nlevels - 1, state, rv, None,
+                                       ncoarse=ncoarse)
         return lambda rv: cycle(rv.to(self.cdt)).to(rv.dtype)

@@ -64,7 +64,7 @@ from .solvers.linear import (
 )
 from .solvers.newton import newton
 from .stabilisation import make_stabilisation
-from .utils.events import timed_function, timed_region
+from .utils.events import host_read, spanned, timed_function, timed_region
 from .utils.tree import tnorm, tscale
 
 GREEN = "\033[1;37;32m%s\033[0m"
@@ -431,6 +431,7 @@ class NavierStokesSolver:
         if self.verbose:
             print(msg)
 
+    @spanned("alfi.re_step")
     def solve(self, re, hooks=None):
         """Solve at Reynolds number ``re`` (continuation from the current
         state), mirroring alfi/solver.py:257-303.
@@ -465,8 +466,10 @@ class NavierStokesSolver:
         # the first linear step builds the kernel and initialises cuBLAS
         # and cuSOLVER: attribute it to a warm-up event so that KSPSolve
         # stays a per-iteration quantity
-        residual_t = timed_function("SNESFunctionEval")(residual)
-        linear_t = timed_function("KSPSolve", first_to="Warmup")(linear)
+        residual_t = spanned("alfi.residual")(
+            timed_function("SNESFunctionEval")(residual))
+        linear_t = spanned("alfi.linear_step")(
+            timed_function("KSPSolve", first_to="Warmup")(linear))
         with timed_region("SNESSolve"):
             z, ninfo = newton(
                 residual_t, linear_t,
@@ -491,12 +494,15 @@ class NavierStokesSolver:
             self.z = self.z_last
             z = h._to_local(self.z)
 
-        # gamma-free residual sanity check (alfi/solver.py:282-291)
-        self.residual_no_graddiv = float(h._solve_norm(residual_ngd(z)))
+        # gamma-free residual sanity check (alfi/solver.py:282-291); the
+        # residual with the grad-div term only feeds the message (a
+        # distributed solve's norm is a collective: every rank takes it)
+        self.residual_no_graddiv = host_read(h._solve_norm(residual_ngd(z)))
         self.message(BLUE % ("Residual without grad-div term: %.14e"
                              % self.residual_no_graddiv))
-        self.message(BLUE % ("Residual with grad-div term:    %.14e"
-                             % float(h._solve_norm(residual(z)))))
+        if self.verbose or hooks is not None:
+            self.message(BLUE % ("Residual with grad-div term:    %.14e"
+                                 % host_read(h._solve_norm(residual(z)))))
 
         linear_its = ninfo.linear_iter
         nonlinear_its = max(1, ninfo.nonlinear_iter)
@@ -532,7 +538,7 @@ class NavierStokesSolver:
     def _shift_pressure(self, z):
         """The state with its pressure's mean removed."""
         u, p = z
-        pint = float(self.form.pressure_integral(p))
+        pint = host_read(self.form.pressure_integral(p))
         return (u, p - pint / self.area)
 
     def _to_local(self, z):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.events import span
 from .krylov import cg
 
 
@@ -56,13 +57,14 @@ class SchurPC:
         solve_A = self.solve_A
 
         def apply(r):
-            rv, rq = r
-            t = solve_A(mask_u * rv)
-            s = rq - form.apply_divergence(t)
-            p = self.schur_inverse(s, params)
-            w = mask_u * form.apply_pressure_gradient(p)
-            u = t - solve_A(w)
-            return (u, p)
+            with span("alfi.pc_apply"):
+                rv, rq = r
+                t = solve_A(mask_u * rv)
+                s = rq - form.apply_divergence(t)
+                p = self.schur_inverse(s, params)
+                w = mask_u * form.apply_pressure_gradient(p)
+                u = t - solve_A(w)
+                return (u, p)
 
         return apply
 

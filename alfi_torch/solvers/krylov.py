@@ -12,15 +12,17 @@ Convergence semantics mirror KSPConvergedDefault with unpreconditioned
 norms: stop when ||r|| <= max(rtol * ||r0||, atol); for right-
 preconditioned (F)GMRES the Givens residual estimate IS the
 unpreconditioned residual norm.  Those tests read the residual estimate
-on the host, one synchronisation per Arnoldi step.  The fixed-iteration
-mode of the multigrid smoother (``rtol=0, atol<0``) tests nothing and so
-never synchronises: it always runs ``min(maxit, restart)`` steps.
+on the host (``events.host_read``, counted), one synchronisation per
+Arnoldi step.  The fixed-iteration mode of the multigrid smoother
+(``rtol=0, atol<0``) tests nothing and so reads nothing: it always runs
+``min(maxit, restart)`` steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.events import host_read
 from ..utils.tree import (
     leaves,
     taxpy,
@@ -152,7 +154,7 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
     # spent before the Krylov loop
     r0 = b if zero_guess else tsub(b, opA(x0))
     rnorm0 = _norm(r0)
-    target = None if fixed else max(rtol * float(rnorm0), atol)
+    target = None if fixed else max(rtol * host_read(rnorm0), atol)
 
     def cgs2(V, w, n):
         """Classical Gram-Schmidt with one re-orthogonalisation pass."""
@@ -176,7 +178,7 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
         j = 0
         rnorm = beta
         while (j < m and total_it + j < maxit
-               and (fixed or float(rnorm) > target)):
+               and (fixed or host_read(rnorm) > target)):
             z = pc(_get(V, j, b))
             _set(Z, j, z)
             w = opA(z)
@@ -216,14 +218,14 @@ def fgmres(A, b, pc=None, x0=None, rtol=1e-9, atol=1e-10, maxit=500,
     else:
         x, iters, rnorm = x0, 0, rnorm0
         r = r0 if zero_guess else None
-        while float(rnorm) > target and iters < maxit:
+        while host_read(rnorm) > target and iters < maxit:
             x, iters, rnorm = cycle(x, iters, r)
             r = None
     info = {
         "iters": iters,
         "rnorm": rnorm,
         "rnorm0": rnorm0,
-        "converged": None if fixed else float(rnorm) <= target,
+        "converged": None if fixed else host_read(rnorm) <= target,
     }
     return x, info
 
@@ -247,12 +249,12 @@ def cg(A, b, pc=None, x0=None, rtol=1e-8, atol=1e-50, maxit=200,
     b = project(b)
     r = tsub(b, project(A(x0)))
     rnorm0 = tnorm(r)
-    target = max(rtol * float(rnorm0), atol)
+    target = max(rtol * host_read(rnorm0), atol)
     z = pc(r)
     p = z
     rz = tdot(r, z)
     x, it, rnorm = x0, 0, rnorm0
-    while float(rnorm) > target and it < maxit:
+    while host_read(rnorm) > target and it < maxit:
         Ap = project(A(p))
         alpha = rz / (tdot(p, Ap) + _EPS)
         x = taxpy(alpha, p, x)
@@ -265,7 +267,7 @@ def cg(A, b, pc=None, x0=None, rtol=1e-8, atol=1e-50, maxit=200,
         it += 1
         rnorm = tnorm(r)
     return x, {"iters": it, "rnorm": rnorm, "rnorm0": rnorm0,
-               "converged": float(rnorm) <= target}
+               "converged": host_read(rnorm) <= target}
 
 
 def chebyshev(A, b, pc, x0=None, maxit=2, lmin=None, lmax=None,

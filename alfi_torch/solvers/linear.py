@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..fem.scatter import ScatterAdd
+from ..utils.events import span
 from .batched_lu import coarse_factor, coarse_solve
 
 
@@ -47,8 +48,9 @@ def make_jacobian_matvec(residual_fn, bcset, z, params):
         return residual_fn(zz, params)
 
     def matvec(v):
-        _, Jv = torch.func.jvp(f, (z,), (bcset.zero(v),))
-        return bcset.identity_rows(bcset.zero_rows(Jv), v)
+        with span("alfi.jacobian_matvec"):
+            _, Jv = torch.func.jvp(f, (z,), (bcset.zero(v),))
+            return bcset.identity_rows(bcset.zero_rows(Jv), v)
 
     return matvec
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
+from ..utils.events import host_read
 from ..utils.tree import taxpy, tnorm
 
 
@@ -46,7 +47,7 @@ def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
     z = z0
     info = NewtonInfo()
     F = residual(z)
-    fnorm = float(norm(F))
+    fnorm = host_read(norm(F))
     fnorm0 = fnorm
     info.fnorm_history.append(fnorm)
     if monitor:
@@ -60,7 +61,7 @@ def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
         z = taxpy(1.0, dz, z)
         info.nonlinear_iter = it
         F = residual(z)
-        fnorm = float(norm(F))
+        fnorm = host_read(norm(F))
         info.fnorm_history.append(fnorm)
         if monitor:
             monitor(it, fnorm)
@@ -76,8 +77,8 @@ def newton(residual, linear_solve, z0, *, maxit=20, rtol=1e-9, atol=1e-8,
         if fnorm <= rtol * fnorm0:
             info.converged, info.reason = True, "rtol"
             return z, info
-        snorm = float(norm(dz))
-        znorm = float(norm(z))
+        snorm = host_read(norm(dz))
+        znorm = host_read(norm(z))
         if snorm <= stol * znorm:
             info.converged, info.reason = True, "stol"
             return z, info

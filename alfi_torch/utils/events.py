@@ -7,25 +7,83 @@ the devices that hold its outputs before it reads the clock, so that
 asynchronous CUDA launches do not hide the cost.  Event names mirror the
 reference's so that reports stay comparable (SNESSolve, KSPSolve,
 SNESFunctionEval).
+
+Beside them, the program's spans and its one counter:
+
+* :func:`span` (and :func:`spanned`, its decorator form) marks a layer of
+  the solve (``alfi.re_step``, ``alfi.pc_apply``, ``alfi.smooth``, ...) as
+  a ``torch.profiler.record_function`` range while a profiler records, so
+  that the range sits on the trace's own clock beside the card's kernels
+  and each launch is tied to the innermost range open at that moment.
+  With no profiler recording it is one probe of the profiler's enabled
+  flag and a shared no-op context: no clock read, no allocation.
+* ``COUNTERS["host_reads"]`` counts the device-to-host scalar reads of
+  the solve path, each made by :func:`host_read` (always on: one int add
+  per read, which itself drains the device's queue).
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from functools import wraps
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function as _record_function
 
 EVENTS: dict = defaultdict(lambda: {"time": 0.0, "count": 0})
 
+#: the program's counters; :func:`reset` zeroes them
+COUNTERS: dict = {"host_reads": 0}
+
 # event names whose cold (first) call was already attributed elsewhere
 _WARMED: set = set()
+
+# the one context every span returns while no profiler records
+_OFF = nullcontext()
 
 
 def reset():
     EVENTS.clear()
     _WARMED.clear()
+    for key in COUNTERS:
+        COUNTERS[key] = 0
+
+
+def span(name):
+    """A context marking the layer ``name``: a profiler range while a
+    ``torch.profiler`` profile records, else a shared no-op."""
+    if _profiler_enabled():
+        return _record_function(name)
+    return _OFF
+
+
+def spanned(name):
+    """Decorator: every call of the function runs inside ``span(name)``
+    (with no profiler recording, after the probe alone)."""
+
+    def deco(fn):
+        @wraps(fn)
+        def wrapped(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with _record_function(name):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    return deco
+
+
+def host_read(t):
+    """``float(t)`` of a device scalar, counted in
+    ``COUNTERS["host_reads"]`` and marked by the span ``alfi.host_read``:
+    the read waits for every launch before it."""
+    COUNTERS["host_reads"] += 1
+    with span("alfi.host_read"):
+        return float(t)
 
 
 def _cuda_devices(out, found):
