@@ -128,22 +128,44 @@ def _dryrun_rank(group):
 #: to :func:`dryrun_reference`'s.  From rest at Re=1000 the step is poorly
 #: determined: the single device's own steps at ksp_rtol 1e-9 and 1e-13
 #: differ by 3e-4 (u) and 6e-4 (p).  A distributed step follows the single
-#: device's Krylov path, so it comes much closer: on the CPU at 1, 2 and 8
-#: ranks within 6e-9 (u) and 8e-7 (p), the p gap the same at ksp_rtol
-#: 1e-13 (rounding the ill-conditioned pressure block amplifies)
+#: device's Krylov path under the same outer Jacobian, so it comes much
+#: closer: on the CPU at 1, 2 and 8 ranks within 6e-9 (u) and 8e-7 (p), the
+#: p gap the same at ksp_rtol 1e-13 (rounding the ill-conditioned pressure
+#: block amplifies)
 DRYRUN_TOL = (1e-7, 1e-5)
 
 
+def jvp_linear_step(solver):
+    """``solver``'s linear step with its outer FGMRES on the jvp of the
+    residual, the distributed solve's Jacobian action.  The single device's
+    almg applies its MG set-up's assembled operator instead, the same
+    operator rounded otherwise, which moves a step from rest at Re=1000 by
+    ~1e-5: inside the step's own accuracy (above), outside DRYRUN_TOL."""
+    from ..solvers.fieldsplit import pressure_nullspace_projector
+
+    make_pc = solver._make_schur_pc
+
+    def jvp_pc(z, params, tstate):
+        pc = make_pc(z, params, tstate)
+        pc.jacobian_A = None
+        return pc
+
+    project = (pressure_nullspace_projector(solver.Z) if solver.nsp
+               else None)
+    return solver._schur_fgmres_step(jvp_pc, project)
+
+
 def dryrun_reference(device):
-    """The dryrun's Newton step on one device (no group): the state after
-    it (numpy (u, p)) and its FGMRES count, which every rank's must
-    match."""
+    """The dryrun's Newton step on one device (no group), by the
+    distributed solve's Jacobian action (:func:`jvp_linear_step`): the
+    state after it (numpy (u, p)) and its FGMRES count, which every rank's
+    must match."""
     solver = ldc_solver(device, re=1000.0, stabilisation_type="supg")
     params = solver.params()
     z = solver.z
     F = solver.residual_masked(z, params)
-    dz, its = solver._linear_step(z, F, params,
-                                  solver._transfer_setup(params))
+    dz, its = jvp_linear_step(solver)(z, F, params,
+                                      solver._transfer_setup(params))
     return _np((z[0] + dz[0], z[1] + dz[1])), int(its)
 
 

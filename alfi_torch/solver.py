@@ -35,6 +35,7 @@ import time as _time
 
 import torch
 
+from .config import real_dtype
 from .fem import (
     BCSet,
     FunctionSpace,
@@ -58,6 +59,7 @@ from .solvers.linear import (
     assemble_dense_velocity,
     flatten_mixed,
     lu_solve_closure,
+    make_assembled_jacobian_matvec,
     make_jacobian_matvec,
     make_jacobian_rmatvec,
     unflatten_mixed,
@@ -277,17 +279,32 @@ class NavierStokesSolver:
 
     def _schur_fgmres_step(self, make_pc, project):
         """The outer Krylov step of allu, almg and the AMG modes: FGMRES
-        (maxit 500, restart 30) on the matrix-free Jacobian under the
-        Schur-complement preconditioner that ``make_pc(z, params,
-        tstate)`` builds at each Newton step (kept as
-        ``self._make_schur_pc`` for the adjoint)."""
+        (maxit 500, restart 30) on the Jacobian under the Schur-complement
+        preconditioner that ``make_pc(z, params, tstate)`` builds at each
+        Newton step (kept as ``self._make_schur_pc`` for the adjoint).
+
+        The Jacobian action: where the preconditioner holds the exact
+        velocity block (``SchurPC.jacobian_A``: almg's finest level
+        operator, assembled at the same state in f64), that block plus B^T
+        and B (:func:`make_assembled_jacobian_matvec`: KM, and KB on a
+        gamma-split state); else ``torch.func.jvp`` of the residual
+        (:func:`make_jacobian_matvec`): allu, alamg, simple and lsc, whose
+        set-up holds no such operator (a dense factor, an AMG hierarchy),
+        and almg where the level operators are stored narrower than f64
+        or the residual has pressure terms they lack (GLS, SUPG on a
+        pressure of degree 1 or more)."""
         form, bcset = self.form, self.bcset
         tol = self.tolerances
         self._make_schur_pc = make_pc
 
         def lin(z, F, params, tstate):
-            pc = make_pc(z, params, tstate).make_apply(params)
-            J = make_jacobian_matvec(form.residual, bcset, z, params)
+            schur = make_pc(z, params, tstate)
+            pc = schur.make_apply(params)
+            if schur.jacobian_A is not None:
+                J = make_assembled_jacobian_matvec(form, bcset,
+                                                   schur.jacobian_A)
+            else:
+                J = make_jacobian_matvec(form.residual, bcset, z, params)
             dz, info = fgmres(
                 J, tscale(-1.0, F), pc=pc, rtol=tol["ksp_rtol"],
                 atol=tol["ksp_atol"], maxit=500, restart=30,
@@ -309,11 +326,31 @@ class NavierStokesSolver:
             lambda params: vmg.transfer_setup(params, static["schoeberl"]))
 
         form, mask_u = self.form, self.bcset.mask[0]
+        # the finest level operator (nu K + advect (N + the stabilisation's
+        # velocity terms) + gamma G at z) is the Newton Jacobian's velocity
+        # block; the Jacobian is that block plus B^T and B where the
+        # residual has no other pressure term: no stabilisation, Burman's
+        # (its facet Jacobians merged in), or SUPG on a P0 pressure (the
+        # strong residual's grad p vanishes); not GLS (pressure rows
+        # (Lu, grad q)), nor SUPG on a pressure of degree 1 or more
+        st, L = self.stabilisation, vmg.nlevels - 1
+        exact = L > 0 and (
+            st is None or st.has_facet_tensors
+            or (st.impl.mode == "supg" and self.Z.Q.element.degree == 0))
 
         def make_pc(z, params, tstate):
-            return SchurPC(form, mask_u, vmg.make_solve_A(vmg.setup(
-                z[0], params, schoeberl_state=tstate, static=static,
-                p_fine=z[1])))
+            state = vmg.setup(z[0], params, schoeberl_state=tstate,
+                              static=static, p_fine=z[1])
+            vals = state["level_ops"][L]
+            jacobian_A = None
+            if exact and (vals["M"] if isinstance(vals, dict)
+                          else vals).dtype == real_dtype:
+                # an f32-stored or f32-cycle state keeps the jvp: its
+                # rounded operator would change the outer result
+                def jacobian_A(u):
+                    return vmg.level_apply(L, vals, u)
+            return SchurPC(form, mask_u, vmg.make_solve_A(state),
+                           jacobian_A=jacobian_A)
 
         return self._schur_fgmres_step(make_pc, project)
 

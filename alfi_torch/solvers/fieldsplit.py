@@ -35,15 +35,20 @@ class SchurPC:
     mask_u : (ndofV, d) velocity BC row mask
     solve_A : closure rv -> approx A^{-1} rv on (ndofV, d) tensors; must
         return zero rows at BC dofs for zero-row inputs.
+    jacobian_A : optional closure u -> M A (M u) + (I - M) u, A the exact
+        velocity block of the Newton Jacobian at the PC's state, where the
+        set-up behind ``solve_A`` assembled it in f64 (almg's finest level
+        operator); the outer Krylov then applies the Jacobian from it.
     """
 
     #: subclasses that never read ``minv`` (LSC) skip computing it
     needs_minv = True
 
-    def __init__(self, form, mask_u, solve_A):
+    def __init__(self, form, mask_u, solve_A, jacobian_A=None):
         self.form = form
         self.mask_u = mask_u
         self.solve_A = solve_A
+        self.jacobian_A = jacobian_A
         self.minv = (form.pressure_mass_inverse() if self.needs_minv
                      else None)
 

@@ -1,10 +1,13 @@
 """Linearised operators, dense assembly and direct solves for the mixed
 system (the reference's "lu"/"allu" branches, alfi/solver.py:396-421).
 
-* the matrix-free Jacobian action is ``torch.func.jvp`` of the residual
-  (the JAX package uses ``jax.linearize``, which evaluates the primal
-  once; ``jvp`` evaluates it again on every call — one extra residual
-  per outer Krylov iteration); its transpose, for the adjoint solve, one
+* the outer Krylov's Jacobian action: for almg, the multigrid set-up's
+  assembled finest level operator (the velocity block) plus B^T and B
+  (:func:`make_assembled_jacobian_matvec`), where that operator is the
+  exact Newton Jacobian's block in f64; otherwise ``torch.func.jvp`` of
+  the residual (:func:`make_jacobian_matvec`; the JAX package uses
+  ``jax.linearize``, which evaluates the primal once; ``jvp`` evaluates
+  it again on every call); its transpose, for the adjoint solve, one
   ``torch.func.vjp`` of the residual;
 * dense operators are assembled from per-cell element tensors (the whole
   mixed Jacobian for ``lu``, the velocity block for ``allu`` and the MG
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from ..fem.scatter import ScatterAdd
-from ..utils.events import span
+from ..utils.events import COUNTERS, span
 from .batched_lu import coarse_factor, coarse_solve
 
 
@@ -38,18 +41,50 @@ def unflatten_mixed(x, Z):
 
 
 def make_jacobian_matvec(residual_fn, bcset, z, params):
-    """v -> J(z) v with eliminated rows/cols (identity on BC dofs).
+    """v -> J(z) v with eliminated rows/cols (identity on BC dofs), by
+    ``torch.func.jvp`` of the residual: every call evaluates the residual
+    and its tangent again (with SUPG, its quadrature-degree hessians).
 
-    residual_fn(z, params) must be the RAW (un-masked) residual; masking
-    happens here so the Jacobian stays consistent with the masked
-    residual used by Newton."""
+    The outer FGMRES of allu, alamg, simple and lsc runs on it, and almg's
+    where its multigrid set-up holds no exact velocity block (see
+    :func:`make_assembled_jacobian_matvec`).  residual_fn(z, params) must
+    be the RAW (un-masked) residual; masking happens here so the Jacobian
+    stays consistent with the masked residual used by Newton.  Each call
+    counts in ``COUNTERS["jacobian_jvp"]``."""
 
     def f(zz):
         return residual_fn(zz, params)
 
     def matvec(v):
+        COUNTERS["jacobian_jvp"] += 1
         with span("alfi.jacobian_matvec"):
             _, Jv = torch.func.jvp(f, (z,), (bcset.zero(v),))
+            return bcset.identity_rows(bcset.zero_rows(Jv), v)
+
+    return matvec
+
+
+def make_assembled_jacobian_matvec(form, bcset, apply_A):
+    """The operator of :func:`make_jacobian_matvec` from an assembled
+    velocity block: ``apply_A(u)`` = M A (M u) + (I - M) u, A the velocity
+    block of the Newton Jacobian at the state (almg: the multigrid set-up's
+    finest level operator, kernel KM), and the pressure couplings from the
+    form, B^T = ``apply_pressure_gradient``, B = ``apply_divergence``:
+
+        J [u; p] = [A u + B^T p; B u]   on the BC-zeroed v,
+
+    then the BC rows as identity.  It is that Jacobian only where the
+    residual's pressure enters through -(p, div v) alone and its pressure
+    rows are -(div u, q) alone: no stabilisation, Burman's, or SUPG on a P0
+    pressure (whose strong residual has no pressure gradient), not GLS.
+    Each call counts in ``COUNTERS["jacobian_assembled"]``."""
+
+    def matvec(v):
+        COUNTERS["jacobian_assembled"] += 1
+        with span("alfi.jacobian_matvec"):
+            u, p = bcset.zero(v)
+            Jv = (apply_A(u) + form.apply_pressure_gradient(p),
+                  form.apply_divergence(u))
             return bcset.identity_rows(bcset.zero_rows(Jv), v)
 
     return matvec

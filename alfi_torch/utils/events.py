@@ -8,7 +8,7 @@ asynchronous CUDA launches do not hide the cost.  Event names mirror the
 reference's so that reports stay comparable (SNESSolve, KSPSolve,
 SNESFunctionEval).
 
-Beside them, the program's spans and its one counter:
+Beside them, the program's spans and its counters:
 
 * :func:`span` (and :func:`spanned`, its decorator form) marks a layer of
   the solve (``alfi.re_step``, ``alfi.pc_apply``, ``alfi.smooth``, ...) as
@@ -19,7 +19,11 @@ Beside them, the program's spans and its one counter:
   flag and a shared no-op context: no clock read, no allocation.
 * ``COUNTERS["host_reads"]`` counts the device-to-host scalar reads of
   the solve path, each made by :func:`host_read` (always on: one int add
-  per read, which itself drains the device's queue).
+  per read, which itself drains the device's queue);
+  ``COUNTERS["jacobian_assembled"]`` and ``COUNTERS["jacobian_jvp"]``
+  count the outer Krylov's Jacobian actions by the path each took (the
+  multigrid set-up's assembled operator, or ``torch.func.jvp`` of the
+  residual: ``solvers/linear.py``), one int add per action.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from torch.autograd.profiler import record_function as _record_function
 EVENTS: dict = defaultdict(lambda: {"time": 0.0, "count": 0})
 
 #: the program's counters; :func:`reset` zeroes them
-COUNTERS: dict = {"host_reads": 0}
+COUNTERS: dict = {"host_reads": 0, "jacobian_assembled": 0,
+                  "jacobian_jvp": 0}
 
 # event names whose cold (first) call was already attributed elsewhere
 _WARMED: set = set()

@@ -40,7 +40,9 @@ PARENTS = {
     "alfi.fmg": {"alfi.pc_apply"},
     "alfi.smooth": {"alfi.fmg"},
     "alfi.patch_apply": {"alfi.smooth"},
-    "alfi.level_apply": {"alfi.smooth", "alfi.fmg"},
+    # the smoothers' and the cycle's residuals, and the outer Jacobian
+    # action, which almg takes from the finest level operator
+    "alfi.level_apply": {"alfi.smooth", "alfi.fmg", "alfi.jacobian_matvec"},
     "alfi.prolong": {"alfi.fmg"},
     "alfi.restrict": {"alfi.fmg"},
     "alfi.coarse_solve": {"alfi.fmg"},
@@ -128,10 +130,11 @@ def _sweep(monkeypatch, profile):
         prof.start()
     try:
         for re in RES:
-            n0, c0 = events.COUNTERS["host_reads"], len(calls)
+            n0, c0 = dict(events.COUNTERS), len(calls)
             z, info = s.solve(re)
+            counts = {k: events.COUNTERS[k] - n0[k] for k in n0}
             steps.append({"z": [x.clone() for x in z], "info": info,
-                          "reads": events.COUNTERS["host_reads"] - n0,
+                          "reads": counts["host_reads"], "counts": counts,
                           "fgmres": calls[c0:], "newton": newtons[-1]})
     finally:
         if prof is not None:
@@ -196,6 +199,19 @@ def test_span_counts_follow_the_cycle(profiled):
     smoothing = profiled["solver"].smoothing
     assert count["alfi.patch_apply"] == smoothing * count["alfi.smooth"]
     assert count["alfi.host_read"] == sum(st["reads"] for st in steps)
+    # one outer Jacobian action an outer Krylov it (no FGMRES restarts)
+    assert count["alfi.jacobian_matvec"] == pc
+
+
+def test_outer_jacobian_is_the_assembled_action(plain, profiled):
+    """almg's outer FGMRES multiplies by the set-up's assembled finest
+    level operator plus B^T and B, never by the jvp: one count an action,
+    with or without a profiler."""
+    for sweep in (plain, profiled):
+        for st in sweep["steps"]:
+            its = st["info"]["linear_iter"]
+            assert st["counts"]["jacobian_assembled"] == its
+            assert st["counts"]["jacobian_jvp"] == 0
 
 
 @pytest.mark.parametrize("restart,maxit", [(30, 500), (4, 500), (20, 20)],
@@ -242,6 +258,14 @@ def test_reset_clears_the_counter():
     events.COUNTERS["host_reads"] += 3
     events.reset()
     assert events.COUNTERS["host_reads"] == 0
+
+
+def test_reset_clears_the_jacobian_counters():
+    events.COUNTERS["jacobian_assembled"] += 2
+    events.COUNTERS["jacobian_jvp"] += 5
+    events.reset()
+    assert events.COUNTERS == {"host_reads": 0, "jacobian_assembled": 0,
+                               "jacobian_jvp": 0}
 
 
 def test_span_is_one_shared_noop_without_profiler():
