@@ -32,12 +32,12 @@ if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
 
-def readings(judge, coords, steps):
+def readings(judge, nodes, steps):
     """{variant: [(re, residual)]} for the program, the control and the
     faults on the steps [(re, u, p)] of one sweep."""
     import torch
 
-    ux = torch.as_tensor(coords[0])
+    ux = torch.as_tensor(nodes[0])
     k = int(((ux - ux.mean(0)) ** 2).sum(1).argmin())
 
     def altered(u):
@@ -80,7 +80,7 @@ def main(argv=None):
     config = registry.config(w["config"])
     mix = registry.traffic(w["traffic"])
     dev = device.Device("cuda")
-    system, mesh, coords = build(config, mix, "cuda", T_START)
+    system, mesh, nodes = build(config, mix, "cuda", T_START)
     dev.reset_peak()
     seeds = [int(s) for s in a.seeds.split(",")]
     runs = {}
@@ -99,13 +99,13 @@ def main(argv=None):
           flush=True)
     free(system, dev)
     del system
-    judge = Judge(config, mesh, coords, "cuda")
+    judge = Judge(config, mesh, nodes, "cuda")
     if judge.error:
         raise SystemExit("calibrate: %s" % judge.error)
     result = {"workload": a.workload, "card": torch.cuda.get_device_name(0),
               "power": device.power_limit(), "peak_bytes": peak, "seeds": {}}
     for seed, r in runs.items():
-        rd = readings(judge, coords, r.pop("states"))
+        rd = readings(judge, nodes, r.pop("states"))
         r.update(rd)
         result["seeds"][seed] = r
         print(json.dumps({"seed": seed, **{

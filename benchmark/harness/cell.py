@@ -129,14 +129,16 @@ def _metrics(bench, workload, record, section):
 def build(config, mix, device, t_start, system_hook=None):
     """Set-up up to the window: the system of ``config`` built on
     ``device``, warmed up by one solve at the mix's ``warmup_re`` from rest
-    and reset to rest.  Returns (system, its finest mesh, its node
-    coordinates).  ``system_hook(system)`` runs on the built system before
+    and reset to rest.  Returns (system, its finest mesh, its nodes: the
+    velocity and pressure dof coordinates and the pressure's cell-to-dof
+    map).  ``system_hook(system)`` runs on the built system before
     the warm-up (the tests break it there)."""
     t_import = time.perf_counter()
     system = System(config, device)
     if system_hook is not None:
         system_hook(system)
-    mesh, coords = system.mesh(), system.node_coords()
+    mesh = system.mesh()
+    nodes = system.node_coords() + (system.pressure_cell_dofs(),)
     t_built = time.perf_counter()
     system.rest()
     system.solve(float(mix["warmup_re"]))
@@ -145,7 +147,7 @@ def build(config, mix, device, t_start, system_hook=None):
           "%.3f s to warm up" % (t_import - t_start, t_built - t_import,
                                  time.perf_counter() - t_built),
           file=sys.stderr, flush=True)
-    return system, mesh, coords
+    return system, mesh, nodes
 
 
 def free(system, dev):
@@ -166,7 +168,7 @@ def run(bench, workload, seed, seconds, trace, *, t_start, device="cuda",
     config = config or registry.config(w["config"])
     mix = mix or registry.traffic(w["traffic"])
     dev = Device(device)
-    system, mesh, coords = build(config, mix, device, t_start, system_hook)
+    system, mesh, nodes = build(config, mix, device, t_start, system_hook)
     spans = Spans(system.solver, dev) if trace else None
     sweeps = traffic.sweeps(mix, seed)
     dev.sync()
@@ -195,7 +197,7 @@ def run(bench, workload, seed, seconds, trace, *, t_start, device="cuda",
     del spans
     free(system, dev)
     del system
-    correct, numbers, residuals = check.judge(config, mesh, coords, states,
+    correct, numbers, residuals = check.judge(config, mesh, nodes, states,
                                               device=device)
     limit = numbers["residual_max"]["limit"]
     converged = [c for s in sweep_rec for c in s["converged"]]

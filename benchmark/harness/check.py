@@ -10,7 +10,9 @@ its limit from the configuration's ``check`` entry:
 * ``residual_max``: the largest residual norm over the judged states;
 * ``steps_unjudged``: timed steps whose state could not be judged (limit
   0): a mesh that fails the reference's check of the box, or nodes that do
-  not match the reference's.
+  not match the reference's (``answers.StateReader``: velocity dofs by
+  point, pressure dofs by their owning cell and point, so that a
+  discontinuous pressure is read as well as a cellwise constant one).
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ from . import answers, registry
 class Judge:
     """The configuration's reference on the program's mesh, after its check
     of the mesh against the configuration's box and lattice, with the
-    reader of the program's states; ``error`` says why there is none."""
+    reader of the program's states; ``error`` says why there is none.
+    ``nodes``: the program's velocity and pressure dof coordinates and its
+    pressure cell-to-dof map, as ``cell.build`` returns them."""
 
-    def __init__(self, config, mesh, coords, device):
+    def __init__(self, config, mesh, nodes, device):
         spec = config["reference"]
         self.error = None
         try:
@@ -33,7 +37,7 @@ class Judge:
             extent, n = float(spec["extent"]), int(spec["cells_per_side"])
             mod.check_mesh(mesh[0], mesh[1], extent, n)
             self.ref = mod.Reference(mesh[0], mesh[1], spec, device=device)
-            self.read = answers.StateReader(self.ref, coords[0], coords[1],
+            self.read = answers.StateReader(self.ref, mesh, nodes,
                                             extent / n)
         except ValueError as exc:
             self.error = str(exc)
@@ -44,10 +48,10 @@ class Judge:
                 for re, u, p in steps]
 
 
-def judge(config, mesh, coords, steps, device="cpu"):
+def judge(config, mesh, nodes, steps, device="cpu"):
     """``steps``: [(re, u, p)] as the program returned them.  Returns
     (correct, numbers, per-step residuals)."""
-    j = Judge(config, mesh, coords, device)
+    j = Judge(config, mesh, nodes, device)
     if j.error is not None:
         print("check: the states cannot be read: %s" % j.error,
               file=sys.stderr)

@@ -1,9 +1,9 @@
 """Finds the benchmark's parts by name: a cell in ``BENCHMARK.json``, a
 configuration in ``configs/<name>.json``, a traffic mix in
-``traffic/<name>.json``, a per-layer metric's reader in
-``metrics/<name>.py`` and a configuration's plain reference in
-``reference/<module>.py``.  A later change adds a part by adding its file
-and its entry; nothing here lists them."""
+``traffic/<name>.json``, a metric's reader in ``metrics/<name>.py`` and
+a configuration's plain reference in ``reference/<module>.py``.  A later
+change adds a part by adding its file and its entry; nothing here lists
+them."""
 
 from __future__ import annotations
 
@@ -53,11 +53,16 @@ def _module(path, label):
 
 
 def reader(name):
-    """The ``read(record)`` function of the per-layer metric ``name``."""
-    path = BENCH / "metrics" / (name + ".py")
-    if not path.is_file():
-        raise KeyError("no reader %s for metric %r" % (path, name))
-    return _module(path, "benchmark_metric_" + name.replace(".", "_")).read
+    """The ``read(record)`` function of the metric ``name``: the reader
+    ``metrics/<name>.py``, or, for a quantity split by the cells that
+    report it (``<base>.<part>``, as ``ms_per_krylov_it.2d``), the reader
+    ``metrics/<base>.py`` where the split name has none of its own."""
+    for stem in dict.fromkeys((name, name.split(".")[0])):
+        path = BENCH / "metrics" / (stem + ".py")
+        if path.is_file():
+            return _module(path, "benchmark_metric_"
+                           + stem.replace(".", "_")).read
+    raise KeyError("no reader metrics/%s.py for metric %r" % (name, name))
 
 
 def reference(module):

@@ -47,6 +47,11 @@ class System:
         Z = self.solver.Z
         return Z.V.dof_coords.copy(), Z.Q.dof_coords.copy()
 
+    def pressure_cell_dofs(self):
+        """The pressure's cell-to-dof map (nc, dofs per cell), rows in the
+        cells' order of :meth:`mesh`: which cell owns each pressure dof."""
+        return self.solver.Z.Q.cell_dofs.copy()
+
     def rest(self):
         s = self.solver
         s.z = tuple(x.clone() for x in self._rest)

@@ -30,6 +30,17 @@ def small_config(base=4, nref=1):
     return cfg
 
 
+def small_3d_config():
+    """The 3D configuration cut to baseN 2, nref 1."""
+    cfg = registry.config("ldc3d_p1fb_supg")
+    flags = cfg["flags"]
+    flags[flags.index("--baseN") + 1] = "2"
+    flags[flags.index("--nref") + 1] = "1"
+    cfg["problem"]["args"]["baseN"] = 2
+    cfg["reference"]["cells_per_side"] = 4
+    return cfg
+
+
 @pytest.fixture(scope="session")
 def bench():
     return registry.load_benchmark()

@@ -24,7 +24,9 @@ def test_traced_run_on_the_card(bench, config, mix):
     assert r["device"]["platform"] == "gpu"
     assert 0 < r["device"]["busy_s"] < r["device"]["window_s"]
     m = r["metrics"]
-    for name in ("k1_roofline", "km_roofline"):
+    # the 2D cell's names of the split quantities
+    for name in ("k1_roofline.2d", "km_roofline.2d"):
         assert 0 < m[name]["value"] <= 100.0, name
-    assert 0 < m["device_idle_pct"]["value"] < 100
+    assert 0 < m["device_idle_pct.2d"]["value"] < 100
+    assert m["sweep_wall_s"]["value"] > 0
     assert r["breakdown"]["device_ops"]

@@ -10,17 +10,7 @@ import torch
 
 from benchmark.harness import answers, check, registry
 from benchmark.harness.system import System
-from conftest import small_config
-
-
-def _small_3d():
-    cfg = registry.config("ldc3d_p1fb_supg")
-    flags = cfg["flags"]
-    flags[flags.index("--baseN") + 1] = "2"
-    flags[flags.index("--nref") + 1] = "1"
-    cfg["problem"]["args"]["baseN"] = 2
-    cfg["reference"]["cells_per_side"] = 4
-    return cfg
+from conftest import small_3d_config, small_config
 
 
 def _small_2d_supg():
@@ -33,7 +23,8 @@ def _small_2d_supg():
     return cfg
 
 
-@pytest.mark.parametrize("make", [small_config, _small_3d, _small_2d_supg],
+@pytest.mark.parametrize("make",
+                         [small_config, small_3d_config, _small_2d_supg],
                          ids=["2d_p2", "3d_p1fb_supg", "2d_p2_supg"])
 def test_reference_residual_is_the_programs(make):
     torch.set_num_threads(1)
@@ -41,7 +32,8 @@ def test_reference_residual_is_the_programs(make):
     system = System(cfg, "cpu")
     s = system.solver
     vertices, cells = system.mesh()
-    judge = check.Judge(cfg, (vertices, cells), system.node_coords(), "cpu")
+    nodes = system.node_coords() + (system.pressure_cell_dofs(),)
+    judge = check.Judge(cfg, (vertices, cells), nodes, "cpu")
     assert judge.error is None
     ref, read = judge.ref, judge.read
     g = torch.Generator().manual_seed(7)

@@ -120,6 +120,35 @@ def test_discovery_by_file_name(bench):
         registry.config("no_such_config")
     with pytest.raises(KeyError):
         registry.reader("no_such_metric")
+    with pytest.raises(KeyError):
+        registry.reader("no_such_metric.2d")
+
+
+def test_each_cell_reports_its_own_metrics(bench):
+    from benchmark.harness.cell import _metrics
+    out, window_s, _, _ = run_window(FakeSystem(0.001), Device("cpu"),
+                                     iter([[1.0, 2.0]] * 10), 0.0)
+    rec = {"sweeps": out, "window_s": window_s, "peak_bytes": 2e9,
+           "trace": None, "setup_s": 3.0}
+    d3, d2 = "ldc3d_p1fb_supg.re500", "ldc2d_p2p0.re500"
+    # sweep_s holds a bound in the 3D cell alone
+    assert set(_metrics(bench, d3, rec, "end_to_end")) == \
+        {"sweep_s", "peak_gb", "setup_s"}
+    assert set(_metrics(bench, d2, rec, "end_to_end")) == \
+        {"peak_gb", "setup_s"}
+    p3 = _metrics(bench, d3, rec, "per_layer")
+    p2 = _metrics(bench, d2, rec, "per_layer")
+    assert not set(p3) & set(p2)
+    # the 2D cell reads sweep_s per layer, and the split quantities
+    # through their base readers
+    assert p2["sweep_wall_s"]["value"] == pytest.approx(out[0]["wall_s"])
+    assert p2["krylov_its_per_sweep.2d"] == p3["krylov_its_per_sweep"]
+    # every per-layer metric names an end-to-end metric that each of its
+    # cells reports
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
+        for w in m["workloads"]:
+            assert w in e2e[m["moves"]].get("workloads", [w]), m["name"]
 
 
 def test_readers_find_nothing_in_an_empty_record(bench):
