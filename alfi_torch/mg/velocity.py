@@ -63,7 +63,7 @@ from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
 from ..solvers.krylov import chebyshev, fgmres
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
 from ..stabilisation import BurmanStabilisation, make_stabilisation
-from ..utils.events import host_read, span, spanned
+from ..utils.events import COUNTERS, host_read, span, spanned
 from .patches import (
     FacetPatchTables,
     assemble_patch_matrices,
@@ -447,11 +447,14 @@ class VelocityMG:
         narrows the Schoeberl state; the smoother's inverses are cast to
         ``mdt`` (FGMRES's defect correction; Chebyshev's storage).
 
-        Spans: ``alfi.mg_setup.tensors`` (winds, cell and facet tensors),
-        ``alfi.mg_setup.patch_inverse`` (the patch contraction and its
-        inverses or LU factors: K3), ``alfi.mg_setup.coarse_factor`` (the
-        dense coarse matrix and its LU, in place) and
-        ``alfi.mg_setup.level_assemble`` (KA)."""
+        Spans: ``alfi.mg_setup.tensors`` (winds, cell tensors),
+        ``alfi.mg_setup.facet_tensors`` (Burman's facet Jacobians on every
+        level, which add their count to ``COUNTERS["facet_jacobians"]``),
+        ``alfi.mg_setup.patch_inverse`` (the patch contraction, with
+        Burman's facet terms in ``alfi.mg_setup.facet_contract`` inside
+        it, and its inverses or LU factors: K3),
+        ``alfi.mg_setup.coarse_factor`` (the dense coarse matrix and its
+        LU, in place) and ``alfi.mg_setup.level_assemble`` (KA)."""
         self._check_tf32()
         with span("alfi.mg_setup.tensors"):
             winds = [None] * self.nlevels
@@ -484,8 +487,9 @@ class VelocityMG:
                 tensors.append(M_el + params["gamma"] * G_el)
                 N_els.append(N_el)
                 M_els.append(M_el if self.split else None)
-            ftensors = [None] * self.nlevels
-            if self.stab_facet is not None:
+        ftensors = [None] * self.nlevels
+        if self.stab_facet is not None:
+            with span("alfi.mg_setup.facet_tensors"):
                 # per-level Burman facet Jacobians at the injected winds,
                 # advect-scaled like the cell stabilisation terms
                 ftensors = [
@@ -495,19 +499,21 @@ class VelocityMG:
                      ).contiguous()
                     for l in range(self.nlevels)
                 ]
+            COUNTERS["facet_jacobians"] += sum(
+                st.facets.nif for st in self.stab_facet)
         with span("alfi.mg_setup.patch_inverse"):
             if self.stab_facet is not None:
                 # the patch matrices from the whole cell tensors plus the
-                # facet terms
-                patch_lufacs = [
-                    patch_inverses(
-                        assemble_patch_matrices(self.patchsets[l - 1],
+                # facet terms (each level's freed before the next's)
+                def patch_matrices(l):
+                    A = assemble_patch_matrices(self.patchsets[l - 1],
                                                 tensors[l])
-                        + contract_patch_facet_tensors(
+                    with span("alfi.mg_setup.facet_contract"):
+                        return A + contract_patch_facet_tensors(
                             self.patch_facet_tabs[l - 1], ftensors[l])
-                    ).contiguous()
-                    for l in range(1, self.nlevels)
-                ]
+
+                patch_lufacs = [patch_inverses(patch_matrices(l)).contiguous()
+                                for l in range(1, self.nlevels)]
             elif self.smoother == "patch":
                 lu = self.patch_lu is not None
                 patch_lufacs = [

@@ -32,6 +32,7 @@ import torch
 from .config import real_dtype
 from .fem.facets import InteriorFacets
 from .fem.scatter import ScatterAdd
+from .utils.events import spanned
 
 
 class ShakibSUPG:
@@ -475,6 +476,7 @@ class BurmanStabilisation:
         r1 = -torch.einsum("f,q,fqd,fql->fld", coef, w, jump, tn1)
         return r0, r1
 
+    @spanned("alfi.burman_residual")
     def residual(self, z, params):
         """Assembled (Rv, Rq), not advect-scaled; Rq is zero."""
         u, p = z

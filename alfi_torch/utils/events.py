@@ -23,7 +23,10 @@ Beside them, the program's spans and its counters:
   ``COUNTERS["jacobian_assembled"]`` and ``COUNTERS["jacobian_jvp"]``
   count the outer Krylov's Jacobian actions by the path each took (the
   multigrid set-up's assembled operator, or ``torch.func.jvp`` of the
-  residual: ``solvers/linear.py``), one int add per action.
+  residual: ``solvers/linear.py``), one int add per action;
+  ``COUNTERS["facet_jacobians"]`` counts the interior facets whose
+  Burman Jacobians a multigrid set-up forms, over all its levels
+  (``mg/velocity.py``), one int add per set-up.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ EVENTS: dict = defaultdict(lambda: {"time": 0.0, "count": 0})
 
 #: the program's counters; :func:`reset` zeroes them
 COUNTERS: dict = {"host_reads": 0, "jacobian_assembled": 0,
-                  "jacobian_jvp": 0}
+                  "jacobian_jvp": 0, "facet_jacobians": 0}
 
 # event names whose cold (first) call was already attributed elsewhere
 _WARMED: set = set()

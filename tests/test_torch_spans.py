@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import alfi_torch.solver as solver_mod
-from alfi_torch import ConstantPressureSolver
+from alfi_torch import ConstantPressureSolver, ScottVogeliusSolver
 from alfi_torch.problems import TwoDimLidDrivenCavityProblem
 from alfi_torch.solvers.krylov import fgmres
 from alfi_torch.utils import events
@@ -48,6 +48,15 @@ PARENTS = {
     "alfi.coarse_solve": {"alfi.fmg"},
 }
 
+#: the spans that Burman's stabilisation adds (Scott-Vogelius), and the
+#: spans each may sit directly inside
+SV_PARENTS = {
+    "alfi.mg_setup.facet_tensors": {"alfi.mg_setup"},
+    "alfi.mg_setup.facet_contract": {"alfi.mg_setup.patch_inverse"},
+    # the Newton residual, and the step's gamma-free check after the solve
+    "alfi.burman_residual": {"alfi.residual", "alfi.re_step"},
+}
+
 
 @pytest.fixture(autouse=True)
 def _one_thread():
@@ -79,6 +88,15 @@ def _solver():
                                   device="cpu", **KW)
 
 
+def _sv_solver():
+    """alfi's iters2dsv row ([P2]^2-P1disc, barycentric, macrostar,
+    Burman) at ldc2d baseN 2, nref 1."""
+    return ScottVogeliusSolver(
+        TwoDimLidDrivenCavityProblem(2), device="cpu",
+        **dict(KW, hierarchy="bary", patch="macro",
+               stabilisation_type="burman"))
+
+
 def _spans(prof):
     """[(name, parent name)] of the profile's alfi.* ranges, by nesting."""
     rs = sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
@@ -94,9 +112,10 @@ def _spans(prof):
     return out
 
 
-def _sweep(monkeypatch, profile):
+def _sweep(monkeypatch, profile, make=_solver):
     """Re 1 and Re 10 from rest, with the opener counted and every
-    fgmres and Newton call recorded; ``profile``: under torch.profiler."""
+    fgmres and Newton call recorded; ``profile``: under torch.profiler;
+    ``make``: the solver's factory."""
     torch.set_num_threads(1)
     opened, calls, newtons = [], [], []
     real_fgmres, real_newton = solver_mod.fgmres, solver_mod.newton
@@ -121,7 +140,7 @@ def _sweep(monkeypatch, profile):
     monkeypatch.setattr(events, "_record_function", opener)
     monkeypatch.setattr(solver_mod, "fgmres", counted_fgmres)
     monkeypatch.setattr(solver_mod, "newton", recorded_newton)
-    s = _solver()
+    s = make()
     steps = []
     prof = None
     if profile:
@@ -153,6 +172,12 @@ def plain():
 def profiled():
     with pytest.MonkeyPatch.context() as mp:
         return _sweep(mp, profile=True)
+
+
+@pytest.fixture(scope="module")
+def sv_profiled():
+    with pytest.MonkeyPatch.context() as mp:
+        return _sweep(mp, profile=True, make=_sv_solver)
 
 
 def test_no_profiler_opens_no_range(plain):
@@ -265,8 +290,46 @@ def test_reset_clears_the_jacobian_counters():
     events.COUNTERS["jacobian_jvp"] += 5
     events.reset()
     assert events.COUNTERS == {"host_reads": 0, "jacobian_assembled": 0,
-                               "jacobian_jvp": 0}
+                               "jacobian_jvp": 0, "facet_jacobians": 0}
 
 
 def test_span_is_one_shared_noop_without_profiler():
     assert events.span("alfi.a") is events.span("alfi.b")
+
+
+def test_sv_spans_nest_as_the_layers(sv_profiled):
+    spans = sv_profiled["spans"]
+    parents = dict(PARENTS, **SV_PARENTS)
+    assert {n for n, _ in spans} == set(parents)
+    for name, parent in spans:
+        assert parent in parents[name], (name, parent)
+    count = {}
+    for name, _ in spans:
+        count[name] = count.get(name, 0) + 1
+    setups = count["alfi.mg_setup"]
+    assert setups == sum(st["info"]["nonlinear_iter"]
+                         for st in sv_profiled["steps"])
+    assert count["alfi.mg_setup.facet_tensors"] == setups
+    # one contraction a smoothed level
+    assert count["alfi.mg_setup.facet_contract"] == L * setups
+    # each Newton residual, and each step's gamma-free check
+    assert count["alfi.burman_residual"] == (count["alfi.residual"]
+                                             + len(RES))
+
+
+def test_facet_jacobians_count_every_levels_interior_facets(sv_profiled):
+    """One set-up forms the Burman Jacobians of every interior facet of
+    every level: the counter adds that number once a set-up."""
+    vmg = sv_profiled["solver"].vmg
+    per_setup = sum(len(lev.form.mesh.interior_facets) for lev in vmg.levels)
+    assert per_setup == sum(st.facets.nif for st in vmg.stab_facet) > 0
+    for st in sv_profiled["steps"]:
+        assert (st["counts"]["facet_jacobians"]
+                == per_setup * st["info"]["nonlinear_iter"])
+
+
+def test_pkp0_path_records_no_facet_span_or_count(plain, profiled):
+    assert not {n for n, _ in profiled["spans"]} & set(SV_PARENTS)
+    for sweep in (plain, profiled):
+        for st in sweep["steps"]:
+            assert st["counts"]["facet_jacobians"] == 0
