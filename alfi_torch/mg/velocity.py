@@ -60,7 +60,8 @@ from ..fem import (
 from ..fem.scatter import ScatterAdd
 from ..kernels import GradDivTerm, MergedLevelOperator, PatchLUSolve
 from ..solvers.batched_lu import coarse_factor, coarse_solve, patch_inverses
-from ..solvers.krylov import chebyshev, fgmres
+from ..solvers.krylov import (Arnoldi, GraphCapture, chebyshev,
+                              fgmres)
 from ..solvers.linear import assemble_dense_from_tensors, vector_rows
 from ..stabilisation import BurmanStabilisation, make_stabilisation
 from ..utils.events import COUNTERS, host_read, span, spanned
@@ -164,6 +165,9 @@ class VelocityMG:
         self.split = self.cdt != real_dtype or self.sdt != real_dtype
         problem = solver.problem
         self.smoothing = solver.smoothing
+        #: on the card, the FGMRES smoother's CUDA graphs and their
+        #: workspaces by (level, dtype), made at the first smooth
+        self._graphs = None
         self.smoother = smoother
         self.smoother_driver = smoother_driver
         self.cycle = cycle
@@ -691,13 +695,31 @@ class VelocityMG:
                              maxit=m, lmax=state["lmax"][l - 1])
         if self.mdt != b.dtype:
             r0 = b if x0 is None else b - A(x0)
-            e, _ = fgmres(A, r0.to(self.mdt), pc=self._smoother_pc(l, state),
-                          x0=None, rtol=0.0, atol=-1.0, maxit=m, restart=m)
+            r0 = r0.to(self.mdt)
+            e, _ = fgmres(A, r0, pc=self._smoother_pc(l, state), x0=None,
+                          rtol=0.0, atol=-1.0, maxit=m, restart=m,
+                          workspace=self._arnoldi(l, r0))
             e = e.to(b.dtype)
             return e if x0 is None else x0 + e
         x, _ = fgmres(A, b, pc=self._smoother_pc(l, state), x0=x0,
-                      rtol=0.0, atol=-1.0, maxit=m, restart=m)
+                      rtol=0.0, atol=-1.0, maxit=m, restart=m,
+                      workspace=self._arnoldi(l, b))
         return x
+
+    def _arnoldi(self, l, b):
+        """On the card, level l's Arnoldi workspace for vectors like
+        ``b`` (``mdt``): its stages run as CUDA graphs, captured at its
+        first smooth and kept for the solver's life, in buffers that the
+        levels share and that are held only during a smooth, sized for
+        the finest level.  On the CPU none: each smooth runs eagerly in
+        buffers of its own."""
+        if not b.is_cuda:
+            return None
+        if self._graphs is None:
+            finest = (self.levels[-1].V.ndof, self.d)
+            self._graphs = GraphCapture(
+                b.device, Arnoldi.nbytes(finest, self.mdt, self.smoothing))
+        return self._graphs.workspace((l, b.dtype), b, self.smoothing)
 
     @spanned("alfi.prolong")
     def _prolong(self, l, state, xc):

@@ -26,7 +26,14 @@ Beside them, the program's spans and its counters:
   residual: ``solvers/linear.py``), one int add per action;
   ``COUNTERS["facet_jacobians"]`` counts the interior facets whose
   Burman Jacobians a multigrid set-up forms, over all its levels
-  (``mg/velocity.py``), one int add per set-up.
+  (``mg/velocity.py``), one int add per set-up;
+  ``COUNTERS["smoother_graph_captures"]`` and
+  ``COUNTERS["smoother_graph_replays"]`` count the CUDA graphs of the
+  fixed-iteration FGMRES smoother's vector work captured and replayed
+  (``solvers/krylov.py:Arnoldi``: a start, one graph per Arnoldi step, a
+  solution), and ``COUNTERS["smoother_eager_steps"]`` its Arnoldi steps
+  run uncaptured (on the CPU, or with a distributed solve's dot context),
+  one int add each.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ EVENTS: dict = defaultdict(lambda: {"time": 0.0, "count": 0})
 
 #: the program's counters; :func:`reset` zeroes them
 COUNTERS: dict = {"host_reads": 0, "jacobian_assembled": 0,
-                  "jacobian_jvp": 0, "facet_jacobians": 0}
+                  "jacobian_jvp": 0, "facet_jacobians": 0,
+                  "smoother_graph_captures": 0, "smoother_graph_replays": 0,
+                  "smoother_eager_steps": 0}
 
 # event names whose cold (first) call was already attributed elsewhere
 _WARMED: set = set()

@@ -290,7 +290,10 @@ def test_reset_clears_the_jacobian_counters():
     events.COUNTERS["jacobian_jvp"] += 5
     events.reset()
     assert events.COUNTERS == {"host_reads": 0, "jacobian_assembled": 0,
-                               "jacobian_jvp": 0, "facet_jacobians": 0}
+                               "jacobian_jvp": 0, "facet_jacobians": 0,
+                               "smoother_graph_captures": 0,
+                               "smoother_graph_replays": 0,
+                               "smoother_eager_steps": 0}
 
 
 def test_span_is_one_shared_noop_without_profiler():
